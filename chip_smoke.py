@@ -6,8 +6,8 @@ NVIDIA GPU and check it.
 
 Phases (any failure exits non-zero; no phase's failure is caught):
   1. the card (nvidia-smi's name and power limit line, printed again before
-     the {"kernels": ...} line), torch/CUDA versions, and the
-     GroupNorm+SiLU kernel's nvcc build from csrc/ (timed);
+     the {"kernels": ...} line), torch/CUDA versions, and the nvcc builds of
+     both kernels from csrc/ (in parallel, timed);
   2. the kernel against its plain PyTorch version at every GroupNorm shape
      class of the serving path, small N and N=1, NCHW and channels_last,
      fp32 and bf16, SiLU on/off, eps 1e-6/1e-5;
@@ -20,18 +20,38 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      batch 1 (init once, then steps), each with its launch count;
   5. the serving path on two sequences, card against CPU (fp32 outputs,
      bf16-vs-fp32 SSIM), and the kernel's time, plain time, library time and
-     bound at every GroupNorm call shape of one bf16 pipeline call.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without a GPU it exits 2 and prints no result.
+     bound at every GroupNorm call shape of one bf16 pipeline call;
+  6. the advection-diffusion stencil kernel against its plain version
+     (loss rel 1e-5 at the training shapes B=2 and B=32, odd sizes, C > 1,
+     T = 2, 3x3 frames and a non-contiguous view; the same bits on two runs;
+     gradients for x, u, v and kappa equal to the plain version's autograd);
+  7. Earthformer training with the physics prior at the full width of
+     experiments/earthformer/config.yaml through Trainer.fit on synthetic
+     VIL batches: 20 steps at the config's batch of 2 (finite losses, the
+     prior logged, one stencil launch per step), card against CPU on the
+     first 3 batches (TF32 off, losses rel 1e-4), resume (4 steps, a new
+     Trainer(resume=True), 2 more) equal to 6 straight steps (1e-6, cuDNN
+     deterministic), and step time, samples/s and peak memory at B=2 and
+     B=32 beside the stencil kernel's time, plain time and bound;
+  8. latent_forecast_task (Path-B training) on the reference-shape frozen
+     VAE + DLinear at B=8: 3 steps with finite losses and the encoder's
+     GroupNorm launches, forward only, on every step.
+The kernels build in parallel (one nvcc per source). fp32 runs with TF32
+off throughout. The line before the last is {"kernels": [...]}; the last line
+is {"ok": true, "device": {...}}. Without a GPU it exits 2 and prints no
+result.
 """
 
 import collections
+import concurrent.futures
 import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,6 +82,16 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, fp32 outside tensor cores
 KERNEL_SOURCE = "weatherforecastingtoolkit_tpu_torch/csrc/groupnorm_silu.cu"
 REPLACES = "weatherforecastingtoolkit_tpu/ops/pallas/groupnorm.py:28"
+STENCIL_SOURCE = "weatherforecastingtoolkit_tpu_torch/csrc/advection_stencil.cu"
+STENCIL_REPLACES = "weatherforecastingtoolkit_tpu/ops/pallas/stencil.py:62"
+EF_CONFIG = os.path.join(REPO, "experiments", "earthformer", "config.yaml")
+EF_STEPS, EF_SEQ = 20, 25          # training steps at the config's batch
+TIMED_BATCHES = (2, 32)
+LATENT_BATCH = 8
+# (B, T, C, H, W) stencil classes: the training shapes, odd sizes with C > 1
+# and T = 2, and 3x3 frames (one interior element)
+STENCIL_CLASSES = [(2, 12, 1, 128, 128), (32, 12, 1, 128, 128),
+                   (3, 2, 4, 130, 97), (1, 5, 2, 3, 3)]
 
 
 def log(msg=""):
@@ -112,6 +142,56 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Device time of one call without the host's launch overhead: `reps`
+    calls captured in one CUDA graph, replayed between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_step(step, n):
+    """torch.profiler over n steps: device kernel ms per step, the wall ms
+    per step (profiler on), kernels launched per step, and the five kernels
+    with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    count = sum(e.count for e in kernels) / n
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return busy_ms, wall_ms, count, [
+        (e.key[:60], e.self_device_time_total / 1e3 / n) for e in top]
+
+
 def wall_times(fn, n):
     """Host-clock seconds of n calls, each bracketed by synchronize()."""
     import torch
@@ -157,6 +237,275 @@ def check_frames(out, shape):
         raise AssertionError("non-finite output")
 
 
+def stencil_bound(shape):
+    """Least time for the stencil: read x once (fp32) against 14 fp32 flops
+    per interior element and frame pair. Returns (ms, "bytes"|"operations")."""
+    b, t, c, h, w = shape
+    bytes_ms = 1e3 * (b * t * c * h * w * 4 + 16) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 14 * b * c * (t - 1) * (h - 2) * (w - 2) / FP32_OPS_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def stencil_phase():
+    """Phase 6: the kernel against its plain version. Returns the largest
+    absolute error of the loss."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops import stencil as ps
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
+
+    def plain(x, p):
+        b, t, c, h, w = x.shape
+        return ps.advection_diffusion_residual_reference(
+            x.transpose(1, 2).reshape(b * c, t, h, w), p[0], p[1], p[2])
+
+    log("phase 6: stencil kernel vs plain (loss rel 1e-5, same bits twice, "
+        "gradients rel 1e-5)")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(shape, torch.rand(shape, generator=g, device="cuda"))
+             for shape in STENCIL_CLASSES]
+    base = torch.rand((2, 12, 3, 128, 128), generator=g, device="cuda")
+    view = base[:, :, 1:2]                 # (2, 12, 1, 128, 128), strided
+    if view.is_contiguous():
+        raise AssertionError("the view case must not be contiguous")
+    cases.append(("(2,12,1,128,128) channel-slice view", view))
+    err = 0.0
+    for name, x in cases:
+        for coeffs in ((0.0, 0.0, 0.05), (0.3, -0.2, 0.1)):
+            p = torch.tensor(coeffs, device="cuda")
+            got = cs.advection_stencil_cuda(x, p)
+            again = cs.advection_stencil_cuda(x, p)
+            want = plain(x, p)
+            e = abs(float(got) - float(want))
+            if not e <= 1e-5 * abs(float(want)):
+                raise AssertionError(f"stencil {name} {coeffs}: kernel "
+                                     f"{float(got)} vs plain {float(want)}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"stencil {name}: two runs differ")
+            err = max(err, e)
+        log(f"  {name}: loss {float(got):.6g}, abs err {e:.3g}, "
+            f"same bits twice")
+    for shape in ((2, 12, 1, 128, 128), (3, 2, 4, 130, 97)):
+        x = torch.rand(shape, generator=g, device="cuda")
+        leaves = [x.clone().requires_grad_()] + [
+            torch.tensor(c, device="cuda", requires_grad=True)
+            for c in (0.3, -0.2, 0.05)]
+        ps.advection_diffusion_prior(*leaves).backward()
+        ref = [t.detach().clone().requires_grad_() for t in leaves]
+        plain(ref[0], ref[1:]).backward()
+        for name, a, b in zip(("x", "u", "v", "kappa"), leaves, ref):
+            torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-9,
+                                       msg=lambda m: f"grad {name} {shape}: {m}")
+        log(f"  gradients x, u, v, kappa at {shape}: equal to the plain "
+            f"autograd (rel 1e-5)")
+    return err
+
+
+def vil_batches(n, batch, seed):
+    """n uint8 VIL batches {"vil": (batch, 25, 1, 128, 128)} (host numpy)."""
+    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
+        synthetic_vil_events)
+
+    ev = synthetic_vil_events(n * batch, HW, HW, EF_SEQ, seed=seed)
+    vil = np.ascontiguousarray(np.transpose(ev, (0, 3, 1, 2))[:, :, None])
+    return [{"vil": vil[batch * i:batch * (i + 1)]} for i in range(n)]
+
+
+def earthformer_phase(tmp):
+    """Phase 7: Earthformer + physics prior through Trainer.fit at the
+    config's full width. Returns the stencil's launches on the 20-step run,
+    its timing at the config batch and the largest kernel-vs-plain error
+    at the timed shapes."""
+    import torch
+
+    from experiments_gpu.earthformer.train import build_task
+    from weatherforecastingtoolkit_tpu_torch.data.prefetch import to_device
+    from weatherforecastingtoolkit_tpu_torch.ops import stencil as ps
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
+    from weatherforecastingtoolkit_tpu_torch.training.logging import (
+        read_jsonl_metrics)
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import (
+        Trainer, derive_steps)
+    from weatherforecastingtoolkit_tpu_torch.utils.config import Config
+
+    base = Config.load(EF_CONFIG)
+    m = base.model
+
+    def config(name, n_batches, batch):
+        cfg = base.merge({"experiment_path": os.path.join(tmp, name),
+                          "dataset": {"batch_size": batch},
+                          "trainer": {"max_epochs": 1},
+                          "logging": {"log_every_n_steps": 1}})
+        return derive_steps(cfg, n_batches, 0)
+
+    def train(name, batches, n_total, device=None, resume=False):
+        cfg = config(name, n_total, len(batches[0]["vil"]))
+        tr = Trainer(cfg, build_task(cfg), device=device, resume=resume)
+        state = tr.fit(batches, state=tr.init_state())
+        tr.close()
+        return state, [r for r in read_jsonl_metrics(tr.run_dir)
+                       if "train_loss" in r]
+
+    batch = base.dataset.batch_size
+    log(f"phase 7: Earthformer (dim {m.dim}, depth {m.depth}, heads "
+        f"{m.num_heads}, patch {m.patch}, window {list(m.window)}, "
+        f"{m.t_in}->{m.t_out} frames of {HW}x{HW}) + prior (weight "
+        f"{base.physics_prior.weight}, kappa {base.physics_prior.kappa}) "
+        f"through Trainer.fit, fp32, TF32 off")
+    batches = vil_batches(EF_STEPS, batch, seed=7)
+    cs.launches = 0
+    groupnorm.launches = 0
+    t0 = time.perf_counter()
+    state, recs = train("fit", batches, EF_STEPS)
+    torch.cuda.synchronize()
+    launches, gn = cs.launches, groupnorm.launches
+    n_params = sum(p.numel() for p in state.params.parameters())
+    losses = [r["train_loss"] for r in recs]
+    log(f"  {EF_STEPS} steps at B={batch} in {time.perf_counter() - t0:.2f} s "
+        f"({n_params} params): loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
+        f"prior {recs[-1].get('train_physics_prior', float('nan')):.4g}; "
+        f"stencil launches {launches} ({launches / EF_STEPS:g}/step), "
+        f"GroupNorm {gn}")
+    if len(recs) != EF_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses: {losses}")
+    if not all("train_physics_prior" in r for r in recs):
+        raise AssertionError("physics_prior missing from the logged aux")
+    if launches != EF_STEPS or gn != 0:
+        raise AssertionError(f"stencil launches {launches} (expected one per "
+                             f"step, forward only), GroupNorm {gn}")
+    del state
+
+    # card against CPU on the same weights (one seed) and the first 3 batches
+    _, card = train("vs_cpu_card", batches[:3], 3)
+    _, cpu = train("vs_cpu_cpu", batches[:3], 3, device="cpu")
+    rel = max(abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
+              for a, b in zip(card, cpu))
+    log(f"  card vs CPU, 3 steps: losses {[r['train_loss'] for r in card]} vs "
+        f"{[r['train_loss'] for r in cpu]}, max rel diff {rel:.3g} (rel 1e-4)")
+    if len(card) != 3 or len(cpu) != 3 or not rel <= 1e-4:
+        raise AssertionError(f"card vs CPU losses differ by {rel}")
+
+    # resume: 4 steps, a new Trainer(resume=True), 2 more == 6 straight
+    torch.backends.cudnn.deterministic = True
+    straight, _ = train("straight", batches[:6], 6)
+    train("resumed", batches[:4], 6)
+    resumed, _ = train("resumed", batches[4:6], 6, resume=True)
+    torch.backends.cudnn.deterministic = False
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        straight.params.state_dict().values(),
+        resumed.params.state_dict().values()))
+    log(f"  resume at step 4 + 2 steps vs 6 straight: steps {resumed.step} "
+        f"and {straight.step}, max param diff {diff:.3g} (1e-6)")
+    if resumed.step != 6 or not diff <= 1e-6:
+        raise AssertionError(f"resumed run differs from straight: {diff}")
+    del straight, resumed
+
+    # step time, throughput and memory; the stencil at the step's shape
+    timing, err = {}, 0.0
+    for b in TIMED_BATCHES:
+        cfg = config(f"timed_b{b}", 13, b)
+        tr = Trainer(cfg, build_task(cfg))
+        state = tr.init_state()
+        batch_b = to_device(vil_batches(1, b, seed=8)[0], tr.device)
+        for _ in range(3):
+            tr._train_step(state, batch_b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, _ = wall_times(lambda: tr._train_step(state, batch_b), 10)
+        med = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, wall, count, top = profile_step(
+            lambda: tr._train_step(state, batch_b), 3)
+        tr.close()
+        del tr, state, batch_b
+        torch.cuda.empty_cache()
+        shape = (b, m.t_out, m.in_channels, HW, HW)
+        x = torch.rand(shape, device="cuda")
+        p = torch.tensor([base.physics_prior.u, base.physics_prior.v,
+                          base.physics_prior.kappa], device="cuda")
+        err = max(err, abs(float(cs.advection_stencil_cuda(x, p))
+                           - float(ps._frames_reference(x, *p))))
+        # device time inside a CUDA graph; the wrapper's host time aside
+        ms = graph_ms(lambda: cs.advection_stencil_cuda(x, p), 100)
+        plain_ms = graph_ms(lambda: ps._frames_reference(x, *p), 20)
+        call_ms = event_ms(lambda: cs.advection_stencil_cuda(x, p), 200)
+        bound, bound_by = stencil_bound(shape)
+        timing[b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=bound_by)
+        log(f"  B={b}: median step {med * 1e3:.2f} ms over 10 (min "
+            f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+            f"{1 / med:.2f} steps/s, {b / med:.1f} samples/s, peak mem "
+            f"{peak:.2f} GiB")
+        log(f"    profiler, 3 steps: device busy {busy:.2f} ms of {wall:.2f} "
+            f"ms a step ({busy / wall:.0%}, profiler on), {count:.0f} kernels "
+            f"a step; top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+        log(f"    stencil at {shape}: kernel {ms * 1e3:.2f} us (CUDA graph; "
+            f"{call_ms * 1e3:.2f} us a call with the wrapper's host time), "
+            f"plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
+            f"({bound_by}, {bound / ms:.1%} of bound)")
+        del x
+    return launches, timing[batch], err
+
+
+def latent_phase(tmp):
+    """Phase 8: Path-B training (latent_forecast_task) on the frozen
+    reference-shape VAE + DLinear; GroupNorm launches forward only."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.blocks import (
+        GroupNormSiLU)
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
+    from weatherforecastingtoolkit_tpu_torch.training.logging import (
+        read_jsonl_metrics)
+    from weatherforecastingtoolkit_tpu_torch.training.tasks import (
+        latent_forecast_task)
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+    from weatherforecastingtoolkit_tpu_torch.utils.config import Config
+
+    steps = 3
+    vae = AutoencoderKL(**REFERENCE_VAE, seed=0)
+    per_encode = sum(isinstance(mod, GroupNormSiLU)
+                     for mod in vae.encoder.modules())
+    task = latent_forecast_task(lambda f, rng: vae.encode(f).mode(),
+                                DLinear(T_IN, T_OUT, kernel_size=25),
+                                T_IN, T_OUT, LATENT_SHAPE)
+    cfg = Config({"experiment_name": "latent_forecast", "seed": 0,
+                  "experiment_path": os.path.join(tmp, "latent"),
+                  "optim": {"schedule": "constant", "lr": 1e-3},
+                  "trainer": {"total_train_steps": steps, "max_epochs": 1},
+                  "logging": {"log_every_n_steps": 1}})
+    batches = vil_batches(steps, LATENT_BATCH, seed=9)
+    log(f"phase 8: latent_forecast_task, reference-shape frozen VAE (fp32) + "
+        f"DLinear({T_IN}->{T_OUT}), B={LATENT_BATCH}, {steps} steps")
+    tr = Trainer(cfg, task)
+    groupnorm.launches = 0
+    cs.launches = 0
+    t0 = time.perf_counter()
+    tr.fit(batches)
+    torch.cuda.synchronize()
+    gn, st = groupnorm.launches, cs.launches
+    tr.close()
+    losses = [r["train_loss"] for r in read_jsonl_metrics(tr.run_dir)
+              if "train_loss" in r]
+    log(f"  {steps} steps in {time.perf_counter() - t0:.2f} s: losses "
+        f"{losses}; GroupNorm launches {gn} ({gn / steps:g}/step, encoder "
+        f"{per_encode} per call), stencil {st}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"latent forecast losses {losses}")
+    if gn != steps * per_encode or st != 0:
+        raise AssertionError(f"GroupNorm launches {gn}, expected {steps} x "
+                             f"{per_encode}; stencil {st}")
+    if any(p.grad is not None for p in vae.parameters()):
+        raise AssertionError("the frozen VAE received gradients")
+    return gn
+
+
 def main():
     import torch
     import torch.nn.functional as F
@@ -176,6 +525,8 @@ def main():
     from weatherforecastingtoolkit_tpu_torch.models.vae.blocks import (
         GroupNormSiLU)
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import (
+        stencil as stencil_cuda)
 
     if not os.path.abspath(port.__file__).startswith(REPO + os.sep):
         raise RuntimeError(f"imported the port from {port.__file__}, "
@@ -193,12 +544,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    groupnorm.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {groupnorm.build_seconds:.2f} s)")
-    for line in groupnorm.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
+        for fut in [pool.submit(k.build) for k in (groupnorm, stencil_cuda)]:
+            fut.result()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s in parallel (nvcc "
+        f"groupnorm_silu.cu {groupnorm.build_seconds:.2f} s, "
+        f"advection_stencil.cu {stencil_cuda.build_seconds:.2f} s)")
+    for kernel in (groupnorm, stencil_cuda):
+        for line in kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {kernel.SOURCE.name}: {line.strip()}")
 
     # -------------------------------------- 2. kernel against plain version
     log("phase 2: kernel vs plain (fp32 atol 1e-4; bf16 1 ulp + 1e-4)")
@@ -442,6 +797,17 @@ def main():
     fast_tot, _ = time_gn_calls(fast_gn_calls,
                                 f"fast-VAE bf16 B={FAST_BATCH}")
     tot, err = time_gn_calls(gn_calls, f"reference-shape bf16 B={BATCH}")
+    del frames, dlinear
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ 6.-8. the training slice
+    stencil_err = stencil_phase()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        stencil_launches, st, fit_err = earthformer_phase(tmp)
+        latent_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     log(smi)
     log(json.dumps({"kernels": [{
@@ -450,7 +816,13 @@ def main():
         "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
-        "library_ms": tot["library_ms"]}]}))
+        "library_ms": tot["library_ms"]}, {
+        "name": "advection_stencil", "route": "cuda",
+        "source": STENCIL_SOURCE, "replaces": STENCIL_REPLACES,
+        "launches": stencil_launches,
+        "max_abs_err": max(stencil_err, fit_err), "ms": st["ms"],
+        "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"], "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,9 +6,15 @@ names so each module's counterpart is easy to find. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``, and raise when no GPU is
 present and the CPU was not asked for.
 
-This slice ports the Path-B serving rollout: the frozen ``AutoencoderKL``
-(its GroupNorm+SiLU a hand-written Hopper kernel, ``ops/cuda/groupnorm.py``),
-``DLinear``, and the one-shot, autoregressive and streaming pipelines.
+Ported so far:
+  * the Path-B serving rollout: the frozen ``AutoencoderKL`` (its
+    GroupNorm+SiLU a hand-written Hopper kernel, ``ops/cuda/groupnorm.py``),
+    ``DLinear``, and the one-shot, autoregressive and streaming pipelines;
+  * the training harness (``training/``: ``Trainer``, optimizer and
+    schedules, checkpoints, logging, ``latent_forecast_task``), ``Config``,
+    the transformer blocks and ``Earthformer``, and the advection-diffusion
+    prior (``ops/stencil.py``, its forward a hand-written Hopper kernel,
+    ``ops/cuda/stencil.py``).
 """
 
 __version__ = "0.1.0"
@@ -16,11 +22,17 @@ __version__ = "0.1.0"
 # Lazy top-level aliases (PEP 562), the counterpart of
 # weatherforecastingtoolkit_tpu/__init__.py, listing what the port has.
 _LAZY = {
+    "Config": ".utils.config",
     "AutoencoderKL": ".models.vae.autoencoder_kl",
     "DLinear": ".models.forecasters",
+    "Earthformer": ".models.earthformer",
     "make_forecast_pipeline": ".models.rollout",
     "make_streaming_forecaster": ".models.rollout",
     "persistence_baseline": ".models.rollout",
+    "Trainer": ".training.trainer",
+    "latent_forecast_task": ".training.tasks",
+    "CheckpointManager": ".training.checkpoint",
+    "build_optimizer": ".training.trainer",
 }
 
 

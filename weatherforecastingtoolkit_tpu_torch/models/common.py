@@ -8,6 +8,8 @@ the two packages. ``torch.nn.functional.pixel_unshuffle`` orders channels as
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -43,16 +45,17 @@ def depth_to_space(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def lecun_normal_(weight: torch.Tensor,
-                  rng: np.random.Generator) -> torch.Tensor:
+def lecun_normal_(weight: torch.Tensor, rng: np.random.Generator,
+                  fan_in: Optional[int] = None) -> torch.Tensor:
     """flax's default kernel init on a torch (out, in, ...) weight: fan_in
-    is everything but the leading output axis. The draw comes from numpy, so
-    a seed gives the same weights under every torch version (torch's own
+    is everything but the leading output axis unless given (a transposed
+    conv's weight is (in, out, kh, kw)). The draw comes from numpy, so a seed
+    gives the same weights under every torch version (torch's own
     ``trunc_normal_`` changed its sampler between versions)."""
     v = rng.standard_normal(weight.shape)
     out = np.abs(v) > 2.0
     while out.any():                      # truncate at two sigma by redrawing
         v[out] = rng.standard_normal(int(out.sum()))
         out = np.abs(v) > 2.0
-    std = (1.0 / weight[0].numel()) ** 0.5 / _TRUNC_STD
+    std = (1.0 / (fan_in or weight[0].numel())) ** 0.5 / _TRUNC_STD
     return weight.copy_(torch.from_numpy(v * std))

@@ -22,20 +22,13 @@ bound with ``ctypes``. ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "groupnorm_silu.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from .build import CSRC, nvcc_build
+
+SOURCE = CSRC / "groupnorm_silu.cu"
 
 # Number of kernel launches since the last reset (a caller sets it to 0).
 launches = 0
@@ -62,34 +55,14 @@ def group_norm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"groupnorm_silu-{key}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+    so, seconds, out = nvcc_build(SOURCE)
+    if seconds:
+        build_seconds, build_log = seconds, out
     lib = ctypes.CDLL(str(so))
     fn = lib.gn_silu_forward
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
