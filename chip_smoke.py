@@ -8,9 +8,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   1. the card (nvidia-smi's name and power limit line, printed again before
      the {"kernels": ...} line), torch/CUDA versions, and the nvcc builds of
      both kernels from csrc/ (in parallel, timed);
-  2. the kernel against its plain PyTorch version at every GroupNorm shape
-     class of the serving path, small N and N=1, NCHW and channels_last,
-     fp32 and bf16, SiLU on/off, eps 1e-6/1e-5;
+  2. the GroupNorm kernel against its plain PyTorch version at every
+     GroupNorm shape class of the serving paths, small N and N=1, NCHW and
+     channels_last, fp32 and bf16, fp32 and bf16 scale/bias, SiLU on/off,
+     eps 1e-6/1e-5, and at the edges of its plan (C=128/256 at 128x128,
+     N=1 and 3, a ragged 130x97, C not a multiple of the 16-byte vector);
+     the same bits on two runs everywhere;
   3. the main path at full width: the reference-shape VAE
      (64,128,256,512,512) + DLinear(13->12) at batch 64 on synthetic VIL
      frames, fp32 and bf16; median time, frames/s, bf16-vs-fp32 SSIM
@@ -19,11 +22,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      256, the autoregressive rollout at batch 64, the streaming tick at
      batch 1 (init once, then steps), each with its launch count;
   5. the serving path on two sequences, card against CPU (fp32 outputs,
-     bf16-vs-fp32 SSIM), and the kernel's time, plain time, library time and
-     bound at every GroupNorm call shape of one bf16 pipeline call;
+     bf16-vs-fp32 SSIM); the kernel's time (in a CUDA graph, and with the
+     wrapper's host time), plain time, library time and bound at every
+     GroupNorm call shape of one bf16 pipeline call; then, in a fresh
+     process (chip_smoke.py --profile, since torch.profiler sessions came
+     back empty late in this one), one GroupNormSiLU forward (fp32/bf16 x
+     and parameters) and one stencil call = one operation on the card (by
+     the profiler), and the serving profile
+     of a reference-shape and a fast-VAE bf16 call (kernels per call,
+     device-busy share, top five kernels);
   6. the advection-diffusion stencil kernel against its plain version
      (loss rel 1e-5 at the training shapes B=2 and B=32, odd sizes, C > 1,
-     T = 2, 3x3 frames and a non-contiguous view; the same bits on two runs;
+     T = 2, 3x3 frames and a non-contiguous view; the same bits on two runs,
+     on two replays of a CUDA graph, and on graphs replayed on several
+     streams at once beside eager calls;
      gradients for x, u, v and kappa equal to the plain version's autograd);
   7. Earthformer training with the physics prior at the full width of
      experiments/earthformer/config.yaml through Trainer.fit on synthetic
@@ -68,9 +80,15 @@ REFERENCE_VAE = dict(in_channels=1, out_channels=1,
 FAST_VAE = dict(REFERENCE_VAE, block_out_channels=(128, 256, 512),
                 pixel_unshuffle=4)
 LATENT_SHAPE = (64, 8, 8)
-# (C, H, W) of every GroupNorm shape class on the serving path
+# (C, H, W) of every GroupNorm shape class on the serving paths (the fast
+# VAE's (128,32,32), (256,16,16) and (512,8,8) among them)
 GN_CLASSES = [(64, 128, 128), (128, 128, 128), (256, 64, 64), (512, 32, 32),
-              (512, 16, 16), (512, 8, 8), (128, 32, 32)]
+              (512, 16, 16), (512, 8, 8), (128, 32, 32), (256, 16, 16)]
+# cases at the edges of the kernel's plan, (N, C, H, W, groups): wider
+# channels at 128x128 (one slab over 16 blocks), a ragged frame, and C not a
+# multiple of the 16-byte vector (the two-pass path)
+GN_EDGE_CASES = [(n, c, 128, 128, 32) for c in (128, 256) for n in (1, 3)] + [
+    (2, 64, 130, 97, 32), (3, 18, 5, 7, 6), (2, 40, 9, 9, 8)]
 # bf16-vs-fp32 SSIM gate. With random weights the SSIM depends on the
 # draw: bf16_gate_draws.py measures the spread over seeds, and
 # tests/test_torch_port_reference_shape.py shows the port's bf16 error equals
@@ -167,10 +185,46 @@ def graph_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def record_gn_calls(vae, fn):
+    """GroupNorm calls of one fn() call (a warm-up) through vae, counted by
+    (shape, dtype, channels_last, groups, eps, silu)."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.vae.blocks import (
+        GroupNormSiLU)
+
+    calls = collections.Counter()
+
+    def hook(mod, args):
+        x = args[0]
+        cl = (not x.is_contiguous()
+              and x.is_contiguous(memory_format=torch.channels_last))
+        calls[(tuple(x.shape), x.dtype, cl, mod.num_groups, mod.eps,
+               mod.silu)] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in vae.modules()
+               if isinstance(m, GroupNormSiLU)]
+    fn()
+    for hd in handles:
+        hd.remove()
+    return calls
+
+
+def gn_bound(x, scale, silu):
+    """Least time for one GroupNorm call: read x and the parameters once,
+    write y once, against its fp32 operations. Returns (ms, bytes ms,
+    operations ms)."""
+    nbytes = (2 * x.numel() * x.element_size()
+              + 2 * scale.element_size() * x.shape[1])
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * (10 if silu else 7) * x.numel() / FP32_OPS_PER_S
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
 def profile_step(step, n):
     """torch.profiler over n steps: device kernel ms per step, the wall ms
     per step (profiler on), kernels launched per step, and the five kernels
-    with the most device time."""
+    with the most device time. Fails when it recorded no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -185,11 +239,49 @@ def profile_step(step, n):
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no kernel on the card")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     count = sum(e.count for e in kernels) / n
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return busy_ms, wall_ms, count, [
         (e.key[:60], e.self_device_time_total / 1e3 / n) for e in top]
+
+
+def device_ops(fn):
+    """(name, count) of every operation that ran on the card during one
+    fn() call after a first one (kernels, copies and fills alike), from
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                         # one-time set-up (a ticket pool) outside
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def one_kernel(name, fn):
+    """Fail unless fn() runs exactly one operation on the card."""
+    ops = device_ops(fn)
+    if sum(count for _, count in ops) != 1:
+        raise AssertionError(f"{name}: {ops} on the card, expected one kernel")
+    return ops[0][0]
+
+
+def log_profile(title, call):
+    """Log kernels per call, the device's busy share and the top five
+    kernels of two calls under torch.profiler."""
+    busy, wall, count, top = profile_step(call, 2)
+    log(f"{title} (torch.profiler, 2 calls): device busy {busy:.2f} ms of "
+        f"{wall:.2f} ms a call ({busy / wall:.0%}, profiler on), "
+        f"{count:.0f} kernels a call; top: "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
 
 
 def wall_times(fn, n):
@@ -247,6 +339,64 @@ def stencil_bound(shape):
                                    else "operations")
 
 
+def stencil_streams_check(x, params, rounds=20):
+    """CUDA graphs of one stencil call replayed on three streams at once
+    while eager calls run on the capture stream of one of them. Two graphs
+    are captured on torch.cuda.graph's own capture stream, one on the eager
+    calls' stream; each capture has a ticket counter of its own. Every
+    launch reads another of `rounds` inputs (x scaled) copied into its
+    stream's buffer first, so a launch that took a ticket of another would
+    sum stale partials or leave its output unwritten. Each result must have
+    the bits of the eager call on its input, and every ticket counter must
+    be back at zero. All the work is queued behind a long sleep kernel, so
+    that the streams' launches then run at the same time. Returns the
+    number of results compared."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
+
+    inputs = [x * (1.0 + 0.01 * r) for r in range(rounds)]
+    want = [cs.advection_stencil_cuda(xi, params) for xi in inputs]
+    cap = torch.cuda.Stream()
+    streams = [torch.cuda.Stream() for _ in range(3)]
+    bufs = {st: torch.empty_like(x) for st in [cap] + streams}
+    for st in [cap] + streams:
+        st.wait_stream(torch.cuda.current_stream())
+    graphs, outs = [], []
+    for capture, st in zip((cap, None, None), streams):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture):
+            outs.append(cs.advection_stencil_cuda(bufs[st], params))
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    gate = torch.cuda.Event()
+    torch.cuda._sleep(100_000_000)          # tens of ms: the host queues all
+    gate.record()
+    for st in [cap] + streams:
+        st.wait_event(gate)
+    got = []
+    for r in range(rounds):
+        for k, (graph, out, st) in enumerate(zip(graphs, outs, streams)):
+            i = (r + k + 1) % rounds
+            with torch.cuda.stream(st):
+                bufs[st].copy_(inputs[i])
+                graph.replay()
+                got.append((i, out.clone()))
+        with torch.cuda.stream(cap):
+            bufs[cap].copy_(inputs[r])
+            got.append((r, cs.advection_stencil_cuda(bufs[cap], params)))
+    torch.cuda.synchronize()
+    bad = [(i, float(v), float(want[i])) for i, v in got
+           if not torch.equal(v, want[i])]
+    left = int(cs._counters[x.device.index].count_nonzero())
+    if bad or left:
+        raise AssertionError(f"stencil on concurrent streams: {len(bad)} of "
+                             f"{len(got)} results differ from the eager "
+                             f"calls' (input, got, want) {bad[:5]}; "
+                             f"{left} ticket counters not at zero")
+    return len(got)
+
+
 def stencil_phase():
     """Phase 6: the kernel against its plain version. Returns the largest
     absolute error of the loss."""
@@ -260,8 +410,8 @@ def stencil_phase():
         return ps.advection_diffusion_residual_reference(
             x.transpose(1, 2).reshape(b * c, t, h, w), p[0], p[1], p[2])
 
-    log("phase 6: stencil kernel vs plain (loss rel 1e-5, same bits twice, "
-        "gradients rel 1e-5)")
+    log("phase 6: stencil kernel vs plain (loss rel 1e-5, same bits twice "
+        "and on graph replay, one kernel a call, gradients rel 1e-5)")
     g = torch.Generator(device="cuda").manual_seed(6)
     cases = [(shape, torch.rand(shape, generator=g, device="cuda"))
              for shape in STENCIL_CLASSES]
@@ -286,6 +436,30 @@ def stencil_phase():
             err = max(err, e)
         log(f"  {name}: loss {float(got):.6g}, abs err {e:.3g}, "
             f"same bits twice")
+    x = cases[0][1]
+    coeffs = torch.tensor([0.3, -0.2, 0.05], device="cuda")
+    eager = cs.advection_stencil_cuda(x, coeffs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cs.advection_stencil_cuda(x, coeffs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cs.advection_stencil_cuda(x, coeffs)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not (torch.equal(first, out) and torch.equal(out, eager)):
+        raise AssertionError(f"stencil graph replays {float(first)}, "
+                             f"{float(out)} vs eager {float(eager)}")
+    log("  a CUDA graph of one call replayed twice gives the eager call's "
+        "bits (one kernel a call: phase 5's profile process)")
+    n = stencil_streams_check(x, coeffs)
+    log(f"  three graphs replayed on three streams while eager calls run on "
+        f"one's capture stream: {n} results, all the eager call's bits")
     for shape in ((2, 12, 1, 128, 128), (3, 2, 4, 130, 97)):
         x = torch.rand(shape, generator=g, device="cuda")
         leaves = [x.clone().requires_grad_()] + [
@@ -506,6 +680,68 @@ def latent_phase(tmp):
     return gn
 
 
+def profile_phase():
+    """Phase 5's torch.profiler checks, run as ``chip_smoke.py --profile`` in
+    a fresh process: one GroupNormSiLU forward and one stencil call are each
+    exactly one operation on the card (torch.profiler); the
+    serving profile of one reference-shape bf16 call (B=64) and one
+    fast-VAE bf16 call (B=256): kernels per call, the device's busy share
+    and the top five kernels."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
+        synthetic_vil_events)
+    from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
+    from weatherforecastingtoolkit_tpu_torch.models.rollout import (
+        make_forecast_pipeline)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.blocks import (
+        GroupNormSiLU)
+    from weatherforecastingtoolkit_tpu_torch.ops import stencil as ps
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = set()
+    for dtype in (torch.bfloat16, torch.float32):
+        for pdt in (torch.bfloat16, torch.float32):
+            mod = GroupNormSiLU(128, 32).to(device="cuda", dtype=pdt)
+            x, _, _ = gn_inputs((4, 128, 64, 64), dtype, True, seed=7)
+            with torch.inference_mode():
+                names.add(one_kernel(f"GroupNormSiLU x {dtype} params {pdt}",
+                                     lambda: mod(x)))
+    log(f"phase 5 (profile process): one GroupNormSiLU forward = one kernel "
+        f"on the card, by torch.profiler (x and parameters fp32/bf16): "
+        f"{sorted(n[:40] for n in names)}")
+    x = torch.rand((2, 12, 1, HW, HW), device="cuda")
+    coeffs = torch.tensor([0.3, -0.2, 0.05], device="cuda")
+    u, v, k = coeffs
+    name = one_kernel("advection_stencil_cuda",
+                      lambda: cs.advection_stencil_cuda(x, coeffs))
+    one_kernel("advection_diffusion_prior",
+               lambda: ps.advection_diffusion_prior(x, u, v, k))
+    log(f"  one stencil call = one kernel on the card ({name[:40]}; "
+        f"advection_stencil_cuda and advection_diffusion_prior)")
+    dlinear = DLinear(T_IN, T_OUT, kernel_size=25)
+    for cfg, batch, title in ((REFERENCE_VAE, BATCH, "reference-shape"),
+                              (FAST_VAE, FAST_BATCH, "fast-VAE")):
+        events = synthetic_vil_events(batch, HW, HW, T_IN, seed=0)
+        frames = torch.from_numpy(np.ascontiguousarray(
+            np.transpose(events, (0, 3, 1, 2))[:, :, None])).cuda()
+        vae = AutoencoderKL(**cfg, seed=0).to(torch.bfloat16)
+        pipe = make_forecast_pipeline(**codec(vae, torch.bfloat16))
+        check_frames(pipe(dlinear, frames), (batch, T_OUT, 1, HW, HW))
+        log_profile(f"  serving profile, {title} bf16 B={batch}",
+                    lambda: pipe(dlinear, frames))
+        del vae, pipe, frames
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main():
     import torch
     import torch.nn.functional as F
@@ -522,8 +758,6 @@ def main():
         make_forecast_pipeline, make_streaming_forecaster)
     from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
         AutoencoderKL)
-    from weatherforecastingtoolkit_tpu_torch.models.vae.blocks import (
-        GroupNormSiLU)
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import (
         stencil as stencil_cuda)
@@ -556,32 +790,51 @@ def main():
                 log(f"  ptxas {kernel.SOURCE.name}: {line.strip()}")
 
     # -------------------------------------- 2. kernel against plain version
-    log("phase 2: kernel vs plain (fp32 atol 1e-4; bf16 1 ulp + 1e-4)")
+    log("phase 2: kernel vs plain (fp32 atol 1e-4; bf16 1 ulp + 1e-4), the "
+        "same bits on two runs, fp32 and bf16 scale/bias")
+
+    def gn_case(shape, groups, dtype, cl, silu, eps, param_dtype, seed):
+        x, s, b = gn_inputs(shape, dtype, cl, seed)
+        s, b = s.to(param_dtype), b.to(param_dtype)
+        got = groupnorm.group_norm_silu_cuda(x, s, b, groups, eps, silu)
+        again = groupnorm.group_norm_silu_cuda(x, s, b, groups, eps, silu)
+        want = groupnorm.group_norm_silu_reference(x, s, b, groups, eps, silu)
+        torch.cuda.synchronize()
+        ok, err = within_tolerance(got, want)
+        name = (f"N={shape[0]} C={shape[1]} {shape[2]}x{shape[3]} G={groups} "
+                f"{dtype} cl={cl} silu={silu} eps={eps} params {param_dtype}")
+        if not ok:
+            raise AssertionError(f"kernel != plain at {name}: max err {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"two runs differ at {name}")
+        return err
+
+    dtypes = (torch.float32, torch.bfloat16)
     for ci, (c, h, w) in enumerate(GN_CLASSES):
         errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
         cases = 0
         for n in (4, 1):
-            for dtype in errs:
+            for dtype in dtypes:
                 for cl in (False, True):
                     for silu, eps in ((True, 1e-6), (False, 1e-6),
                                       (True, 1e-5), (False, 1e-5)):
-                        x, s, b = gn_inputs((n, c, h, w), dtype, cl,
-                                            seed=ci * 97 + n)
-                        got = groupnorm.group_norm_silu_cuda(
-                            x, s, b, 32, eps, silu)
-                        want = groupnorm.group_norm_silu_reference(
-                            x, s, b, 32, eps, silu)
-                        torch.cuda.synchronize()
-                        ok, err = within_tolerance(got, want)
-                        if not ok:
-                            raise AssertionError(
-                                f"kernel != plain at N={n} C={c} {h}x{w} "
-                                f"{dtype} cl={cl} silu={silu} eps={eps}: "
-                                f"max err {err}")
-                        errs[dtype] = max(errs[dtype], err)
-                        cases += 1
+                        for pdt in dtypes:
+                            errs[dtype] = max(errs[dtype], gn_case(
+                                (n, c, h, w), 32, dtype, cl, silu, eps, pdt,
+                                seed=ci * 97 + n))
+                            cases += 1
         log(f"  C={c} {h}x{w}: {cases} cases ok, max abs err fp32 "
             f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}")
+    for i, (n, c, h, w, groups) in enumerate(GN_EDGE_CASES):
+        err, cases = 0.0, 0
+        for dtype in dtypes:
+            for cl in (False, True):
+                for pdt in dtypes:
+                    err = max(err, gn_case((n, c, h, w), groups, dtype, cl,
+                                           True, 1e-6, pdt, seed=500 + i))
+                    cases += 1
+        log(f"  edge N={n} C={c} {h}x{w} G={groups}: {cases} cases ok, max "
+            f"abs err {err:.3g}")
 
     # --------------------------------------------------- 3. the main path
     events = synthetic_vil_events(BATCH, HW, HW, T_IN, seed=0)
@@ -590,24 +843,6 @@ def main():
     vae32 = AutoencoderKL(**REFERENCE_VAE, seed=0)
     vae16 = copy.deepcopy(vae32).to(torch.bfloat16)
     dlinear = DLinear(T_IN, T_OUT, kernel_size=25)
-
-    def record_gn_calls(vae, fn):
-        """GroupNorm call shapes of one fn() call (a warm-up), counted."""
-        calls = collections.Counter()
-
-        def hook(mod, args):
-            x = args[0]
-            cl = (not x.is_contiguous()
-                  and x.is_contiguous(memory_format=torch.channels_last))
-            calls[(tuple(x.shape), x.dtype, cl, mod.num_groups, mod.eps,
-                   mod.silu)] += 1
-
-        handles = [m.register_forward_pre_hook(hook) for m in vae.modules()
-                   if isinstance(m, GroupNormSiLU)]
-        fn()
-        for hd in handles:
-            hd.remove()
-        return calls
 
     def run_counted(name, fn, n, per_call, batch):
         """n timed calls with the launch count set to 0 just before and read
@@ -747,50 +982,57 @@ def main():
     torch.cuda.empty_cache()
 
     def time_gn_calls(calls, title):
-        log(f"{title}: per GroupNorm call shape, device ms "
-            f"(kernel / plain / F.group_norm+F.silu / bound)")
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   bytes_ms=0.0, ops_ms=0.0)
+        log(f"{title}: per GroupNorm call shape (parameters in x's dtype, as "
+            f"the VAE holds them), device ms: kernel in a CUDA graph / kernel "
+            f"with the wrapper (events) / plain / F.group_norm+F.silu / bound")
+        tot = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
         err = 0.0
         for i, ((shape, dtype, cl, groups, eps, silu), count) in enumerate(
                 sorted(calls.items(), key=lambda kv: -np.prod(kv[0][0]))):
             x, s, b = gn_inputs(shape, dtype, cl, seed=1000 + i)
-            got = groupnorm.group_norm_silu_cuda(x, s, b, groups, eps, silu)
+            s, b = s.to(dtype), b.to(dtype)
+
+            def kernel():
+                return groupnorm.group_norm_silu_cuda(x, s, b, groups, eps,
+                                                      silu)
+
+            got, again = kernel(), kernel()
             want = groupnorm.group_norm_silu_reference(x, s, b, groups, eps,
                                                        silu)
             ok, e = within_tolerance(got, want)
-            if not ok:
-                raise AssertionError(f"kernel != plain at {shape}: {e}")
+            if not ok or not torch.equal(got, again):
+                raise AssertionError(f"kernel != plain at {shape}: {e}, or "
+                                     f"two runs differ")
             err = max(err, e)
-            del got, want
-            sx, bx = s.to(dtype), b.to(dtype)
+            del got, again, want
 
             def library():
-                y = F.group_norm(x, groups, sx, bx, eps)
+                y = F.group_norm(x, groups, s, b, eps)
                 return F.silu(y) if silu else y
 
-            ms = event_ms(lambda: groupnorm.group_norm_silu_cuda(
-                x, s, b, groups, eps, silu), 20)
+            ms = graph_ms(kernel, 20)
+            call_ms = event_ms(kernel, 20)
             plain = event_ms(lambda: groupnorm.group_norm_silu_reference(
                 x, s, b, groups, eps, silu), 3)
             lib = event_ms(library, 20)
-            nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * shape[1]
-            ops = (10 if silu else 7) * x.numel()
-            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-            ops_ms = 1e3 * ops / FP32_OPS_PER_S
-            bound = max(bytes_ms, ops_ms)
+            bound, bytes_ms, ops_ms = gn_bound(x, s, silu)
             log(f"  {count:2d} x N={shape[0]} C={shape[1]} "
                 f"{shape[2]}x{shape[3]} {str(dtype)[6:]} "
                 f"{'channels_last' if cl else 'NCHW'} eps={eps:g} "
-                f"silu={silu}: {ms:.4f} / {plain:.4f} / {lib:.4f} / "
-                f"{bound:.4f} ({bound / ms:.0%} of bound)")
-            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                f"silu={silu}: {ms:.4f} / {call_ms:.4f} / {plain:.4f} / "
+                f"{lib:.4f} / {bound:.4f} ({bound / ms:.0%} of bound)")
+            for k, v in (("ms", ms), ("event_ms", call_ms),
+                         ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bound), ("bytes_ms", bytes_ms),
                          ("ops_ms", ops_ms)):
                 tot[k] += count * v
             del x
             torch.cuda.empty_cache()
         log(f"  per pipeline call ({sum(calls.values())} GroupNorms): "
+            f"kernel {tot['ms']:.3f} ms in CUDA graphs, {tot['event_ms']:.3f} "
+            f"ms with the wrapper; bound {tot['bound_ms']:.3f} ms "
+            f"({tot['bound_ms'] / tot['ms']:.1%} of the graph time); "
             + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()))
         return tot, err
 
@@ -799,6 +1041,11 @@ def main():
     tot, err = time_gn_calls(gn_calls, f"reference-shape bf16 B={BATCH}")
     del frames, dlinear
     torch.cuda.empty_cache()
+
+    # torch.profiler in a fresh process: in this one, after the phases
+    # above, its sessions came back empty on the card
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--profile"],
+                   check=True)
 
     # ------------------------------------------ 6.-8. the training slice
     stencil_err = stencil_phase()
@@ -830,4 +1077,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_phase() if sys.argv[1:] == ["--profile"] else main())

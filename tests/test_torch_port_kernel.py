@@ -11,6 +11,8 @@ import torch
 
 from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm as pgn
 
+from torch_port_card import KERNEL_NODE, graph_node_types
+
 
 @pytest.fixture
 def cuda_device():
@@ -92,3 +94,25 @@ def test_kernel_gradients_match_plain(cuda_device):
     (pgn.group_norm_silu_reference(*ref, 8, 1e-6, True) * g).sum().backward()
     for got, want in zip(leaves, ref):
         torch.testing.assert_close(got.grad, want.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cluster_kernel_bits_bf16_params_ragged_one_kernel(dtype, cuda_device):
+    """channels_last on the cluster kernel (a 128x128 frame whose slab spans
+    a cluster, a ragged 130x97, N=1 and 3) with fp32 and bf16 scale/bias:
+    within tolerance of the plain version, the same bits on two runs, and
+    one operation on the card a call (no casts, no scratch fills: one
+    kernel node in a CUDA graph of the call)."""
+    dt = getattr(torch, dtype)
+    for shape in ((1, 128, 128, 128), (3, 64, 130, 97), (2, 512, 8, 8)):
+        for param_dtype in (torch.float32, torch.bfloat16):
+            x, s, b = _inputs(shape, dt, True, cuda_device, seed=shape[1])
+            s, b = s.to(param_dtype), b.to(param_dtype)
+            got = pgn.group_norm_silu(x, s, b, 32)
+            assert torch.equal(got, pgn.group_norm_silu(x, s, b, 32))
+            want = pgn.group_norm_silu_reference(x, s, b, 32, 1e-6, True)
+            assert _within_tolerance(got, want), (shape, param_dtype)
+            assert graph_node_types(lambda: pgn.group_norm_silu_cuda(
+                x, s, b, 32, 1e-6, True)) == [KERNEL_NODE], (shape,
+                                                            param_dtype)

@@ -17,6 +17,8 @@ import torch
 from weatherforecastingtoolkit_tpu_torch.ops import stencil as ps
 from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
 
+from torch_port_card import KERNEL_NODE, graph_node_types
+
 # (shape (B, T, C, H, W), u, v, kappa): C > 1, T = 2, H = W = 3, odd sizes
 CASES = [((2, 3, 1, 16, 16), 0.5, 0.1, 0.05),
          ((1, 4, 3, 10, 12), 0.3, -0.2, 0.1),
@@ -218,3 +220,84 @@ def test_kernel_prior_gradients_match_plain(cuda_device):
         ref[0].transpose(1, 2).reshape(-1, 4, 32, 32), *ref[1:]).backward()
     for got, want in zip(leaves, ref):
         torch.testing.assert_close(got.grad, want.grad, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_kernel_same_bits_back_to_back_and_on_graph_replay(cuda_device):
+    """The kernel's ticket counter returns to zero after every launch: two
+    back-to-back calls, and a CUDA graph replayed twice, give the same
+    bits; one operation on the card a call with device coefficients (one
+    kernel node in a CUDA graph of the call)."""
+    x = torch.from_numpy(_x((2, 12, 1, 128, 128), seed=9)).to(cuda_device)
+    u, v, kappa = torch.tensor([0.3, -0.2, 0.05], device=cuda_device)
+    first = ps.advection_diffusion_loss(x, u, v, kappa)
+    assert torch.equal(first, ps.advection_diffusion_loss(x, u, v, kappa))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ps.advection_diffusion_loss(x, u, v, kappa)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ps.advection_diffusion_loss(x, u, v, kappa)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    assert torch.equal(replays[0], first) and torch.equal(replays[1], first)
+    assert graph_node_types(lambda: ps.advection_diffusion_prior(
+        x, u, v, kappa)) == [KERNEL_NODE]
+
+
+@pytest.mark.cuda
+def test_graph_replays_on_other_streams_beside_eager_calls(cuda_device):
+    """Graphs of one call replayed on three streams at once (two captured on
+    torch.cuda.graph's own capture stream, one on the stream that then runs
+    eager calls beside the replays), each launch on another input, give the
+    eager calls' bits every time and leave every ticket counter at zero: no
+    two of these launches share a counter."""
+    from chip_smoke import stencil_streams_check
+
+    x = torch.from_numpy(_x((2, 12, 1, 128, 128), seed=10)).to(cuda_device)
+    params = torch.tensor([0.3, -0.2, 0.05], device=cuda_device)
+    assert stencil_streams_check(x, params) == 80
+
+
+def test_ticket_slots(monkeypatch):
+    """Ticket counters (pure bookkeeping, on the CPU): eager launches share
+    one slot per stream; a captured launch takes a slot of its capture and
+    stream, apart from every eager slot and every other capture's."""
+    monkeypatch.setattr(cs, "_counters", {0: torch.zeros(4, dtype=torch.int32)})
+    monkeypatch.setattr(cs, "_slots", {})
+    monkeypatch.setattr(cs, "COUNTER_SLOTS", 4)
+    base = cs._counters[0].data_ptr()
+
+    def slot(capture, stream):
+        return (cs._ticket(0, capture, stream) - base) // 4
+
+    eager_a, eager_b = slot(0, 11), slot(0, 22)
+    graph_a, graph_b = slot(7, 11), slot(8, 11)
+    assert len({eager_a, eager_b, graph_a, graph_b}) == 4
+    assert (slot(0, 11), slot(7, 11), slot(8, 11)) == (eager_a, graph_a,
+                                                       graph_b)
+    with pytest.raises(RuntimeError, match="more than 4"):
+        slot(9, 11)
+    with pytest.raises(RuntimeError, match="outside CUDA graph capture"):
+        cs._ticket(1, 5, 11)
+
+
+def test_band_plan():
+    """The kernel's band and ring (pure, on the CPU): at the training batch
+    of 2 the grid still has at least 64 blocks; every frame of a band fits
+    on chip when it can; the ring fits its shared-memory budget."""
+    for (b, t, c, h, w) in [(2, 12, 1, 128, 128), (32, 12, 1, 128, 128),
+                            (3, 2, 4, 130, 97), (1, 5, 2, 3, 3)]:
+        rows, ring = cs._band(b, c, t, h, w)
+        bands = -(-(h - 2) // rows)
+        assert 1 <= rows <= h - 2 and 2 <= ring <= cs.MAX_RING
+        assert ring * (rows + 2) * w * 4 <= cs.SMEM_BUDGET
+        if (b, t) == (2, 12):
+            assert b * c * bands >= 64 and ring == t
+    with pytest.raises(ValueError, match="too wide"):
+        cs._band(1, 1, 4, 8, 100_000)

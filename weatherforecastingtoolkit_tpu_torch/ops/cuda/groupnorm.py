@@ -9,20 +9,27 @@ normalise, per-channel fp32 affine, optional SiLU, one cast back to the input
 dtype.
 
 On the H100 the kernel is bound by device-memory bytes: it must read x once
-and write y once, and does about ten flops per element. Its design (split
-statistics pass, deterministic Chan combine, vectorised apply pass; no float
-atomics) is described in ``csrc/groupnorm_silu.cu``.
+and write y once, and does about ten flops per element. Its design, in
+``csrc/groupnorm_silu.cu``: one launch per call, one thread-block cluster per
+slab (a sample times a run of whole groups) held in the cluster's shared
+memory, so that x is read once; the cluster's blocks merge their partial
+statistics through distributed shared memory in a fixed order (the same bits
+every run). ``_plan`` cuts the call into slabs and clusters; it is pure, so
+the CPU tests check it at every serving call shape. The kernel reads scale
+and bias in their own dtype (fp32 or bf16), so the wrapper launches nothing
+but the kernel and allocates only y. NCHW, unaligned views and shapes a
+cluster cannot hold take a two-pass path (three launches).
 
 Dispatch: a CPU tensor takes ``group_norm_silu_reference``; a CUDA tensor
 launches the kernel or raises. The kernel is built with ``nvcc`` for
 ``sm_90a`` at first use into ``_build/`` (keyed by a hash of the source) and
-bound with ``ctypes``. ``launches`` counts kernel launches.
+bound with ``ctypes``. ``launches`` counts calls that launched it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,12 +37,27 @@ from .build import CSRC, nvcc_build
 
 SOURCE = CSRC / "groupnorm_silu.cu"
 
+# The cluster kernel's limits (csrc/groupnorm_silu.cu): bytes of a block's
+# shared memory kept for its static arrays and the system's share, groups a
+# slab, and the channel runs it takes (one sector to 256 bytes).
+STATIC_SMEM = 8192
+MAX_SLAB_GROUPS = 64
+RUN_BYTES = (32, 64, 128, 256)
+# A block's share of a slab: 64 KB leaves room for three blocks an SM. The
+# widest run (of 64 bytes or more) whose slab fits clusters of up to 8 such
+# blocks wins, as longer runs use DRAM better; a frame too large for that
+# (128x128) takes the widest run that fits clusters of 16. This is the
+# best of the runs and cluster sizes tried on the H100 (PERF.md).
+BLOCK_BYTES = 64 * 1024
+
 # Number of kernel launches since the last reset (a caller sets it to 0).
 launches = 0
 # The last nvcc run in this process: seconds and output (ptxas -v).
 build_seconds = 0.0
 build_log = ""
 _lib: Optional[ctypes.CDLL] = None
+# device index -> (SMs, shared memory a block can opt into, largest cluster)
+_limits: Dict[int, Tuple[int, int, int]] = {}
 
 
 def group_norm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -67,27 +89,96 @@ def build() -> ctypes.CDLL:
     fn = lib.gn_silu_forward
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = [p, p, p, p, p, p, ll, ll, ll, i, ctypes.c_float,
-                   i, i, i, i, i, p]
+                   i, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
+    lib.gn_silu_device_limits.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.gn_silu_device_limits.restype = ctypes.c_int
     _lib = lib
     return lib
 
 
+def _device_limits(lib: ctypes.CDLL, index: int) -> Tuple[int, int, int]:
+    """(SMs, shared memory a block can opt into, 16 or 8: the largest
+    cluster the kernel schedules), asked once per device."""
+    if index not in _limits:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(index):
+            rc = lib.gn_silu_device_limits(index, out)
+        if rc != 0:
+            raise RuntimeError(f"gn_silu_device_limits failed with CUDA error {rc}")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _limits[index] = (sms, out[0], out[1])
+    return _limits[index]
+
+
+def _plan(n: int, c: int, hw: int, groups: int, elem_bytes: int,
+          smem_per_block: int, max_cluster: int) -> Tuple[int, int, int, int]:
+    """Cut a channels_last call into slabs for the cluster kernel.
+
+    Returns (groups per slab k, cluster size, positions per block, vec):
+    - k * C/G channels a position form the slab's run: 32, 64, 128 or 256
+      bytes, so a run is whole sectors of 16-byte vectors and starts on a
+      16-byte boundary;
+    - the run is the widest of at least 64 bytes whose slab (H*W positions
+      times the run) fits a cluster of at most 8 blocks of BLOCK_BYTES
+      each; failing that the widest that fits at most ``max_cluster`` (16
+      where the card schedules it) such blocks; failing that the narrowest
+      that fits at most ``max_cluster`` blocks of all their shared memory;
+    - the cluster size is the fewest blocks that hold the slab;
+    - vec: elements in a 16-byte vector.
+    (0, 0, 0, vec) means the two-pass path (vec 1 when C is not a multiple
+    of the vector). Pure: no CUDA, so the CPU tests check every call shape.
+    """
+    vec = 16 // elem_bytes
+    if c % vec or c % groups:
+        return 0, 0, 0, 1 if c % vec else vec
+    run_of = (c // groups) * elem_bytes
+    runs = [r for r in RUN_BYTES if r % run_of == 0 and groups % (r // run_of)
+            == 0 and r // run_of <= MAX_SLAB_GROUPS]
+
+    def fit(run: int, budget: int, most: int) -> int:
+        cs = 1
+        while cs <= most and -(-hw // cs) * run > budget:
+            cs *= 2
+        return cs if cs <= most else 0
+
+    full = smem_per_block - STATIC_SMEM
+    wide = [r for r in runs if r >= 64][::-1]
+    choice = next(((run, cs) for budget, most, order in (
+        (BLOCK_BYTES, min(8, max_cluster), wide),
+        (BLOCK_BYTES, max_cluster, runs[::-1]),
+        (full, max_cluster, runs))
+        for run in order for cs in [fit(run, budget, most)] if cs), None)
+    if choice is None:
+        return 0, 0, 0, vec
+    run, cs = choice
+    return run // run_of, cs, -(-hw // cs), vec
+
+
 def _chunks(n: int, c: int, hw: int, groups: int, vec: int,
-            channels_last: bool) -> int:
-    """Blocks per sample (channels_last) or per (sample, group) (NCHW) in the
-    statistics pass: enough to fill the card at N=1, at least four loads a
-    thread. Any value >= 1 gives the same statistics."""
-    target = 4 * torch.cuda.get_device_properties(
-        torch.cuda.current_device()).multi_processor_count
+            channels_last: bool, sms: int) -> int:
+    """Two-pass path: blocks per sample (channels_last) or per (sample,
+    group) (NCHW) in the statistics pass: enough to fill the card at N=1, at
+    least four loads a thread. Any value >= 1 gives the same statistics."""
+    target = 4 * sms
     if channels_last:
         tpr = c // vec
-        rows = 1 if tpr >= 256 else 256 // tpr  # as csrc launch()
+        rows = 1 if tpr >= 256 else 256 // tpr  # as csrc launch_two_pass()
         want, most = -(-target // n), -(-hw // (4 * rows))
     else:
         want = -(-target // (n * groups))
         most = -(-(c // groups) * hw // (4 * 256 * vec))
     return max(1, min(want, most, 65535))
+
+
+def _param(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """scale or bias as the kernel reads it: (C,) contiguous fp32 or bf16 on
+    x's device (no copy when it is that already)."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.float()
+    if t.device != x.device or not t.is_contiguous():
+        t = t.to(x.device).contiguous()
+    return t
 
 
 def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
@@ -116,25 +207,39 @@ def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
                          else torch.contiguous_format)
     if x.numel() == 0:
         return y
+    s, b = _param(scale, x), _param(bias, x)
+    if s.dtype != b.dtype:
+        s, b = s.float(), b.float()
+    index = x.device.index
+    sms, smem, max_cluster = _device_limits(lib, index)
     hw = h * w
-    vec = 16 // x.element_size()
-    if ((c if channels_last else hw) % vec or x.data_ptr() % 16
-            or y.data_ptr() % 16):
-        vec = 1
-    if channels_last and c // vec > 1024:
-        raise ValueError(f"channels_last with C={c} exceeds one block's threads")
-    f32 = dict(device=x.device, dtype=torch.float32)
-    s = scale.detach().to(**f32).contiguous()
-    b = bias.detach().to(**f32).contiguous()
-    with torch.cuda.device(x.device):
-        chunks = _chunks(n, c, hw, groups, vec, channels_last)
-        part = torch.empty(n * groups * chunks * 3, **f32)
-        mean_rstd = torch.empty(n * groups * 2, **f32)
-        rc = lib.gn_silu_forward(
-            x.data_ptr(), y.data_ptr(), s.data_ptr(), b.data_ptr(),
-            part.data_ptr(), mean_rstd.data_ptr(), n, c, hw, groups, eps,
-            int(silu), int(channels_last), int(x.dtype == torch.bfloat16),
-            vec, chunks, torch.cuda.current_stream().cuda_stream)
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    k = cs = ppb = chunks = 0
+    part = mean_rstd = None
+    if channels_last and aligned:
+        k, cs, ppb, vec = _plan(n, c, hw, groups, x.element_size(), smem,
+                                max_cluster)
+    if not cs:                                    # the two-pass path
+        vec = 16 // x.element_size()
+        if (c if channels_last else hw) % vec or not aligned:
+            vec = 1
+        if channels_last and c // vec > 1024:
+            raise ValueError(f"channels_last with C={c} exceeds one block's threads")
+        chunks = _chunks(n, c, hw, groups, vec, channels_last, sms)
+        part = torch.empty(n * groups * chunks * 3, device=x.device)
+        mean_rstd = torch.empty(n * groups * 2, device=x.device)
+    args = (x.data_ptr(), y.data_ptr(), s.data_ptr(), b.data_ptr(),
+            0 if part is None else part.data_ptr(),
+            0 if mean_rstd is None else mean_rstd.data_ptr(),
+            n, c, hw, groups, eps, int(silu), int(channels_last),
+            int(x.dtype == torch.bfloat16), int(s.dtype == torch.bfloat16),
+            vec, k, cs, ppb, chunks)
+    if index == torch.cuda.current_device():
+        rc = lib.gn_silu_forward(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            rc = lib.gn_silu_forward(
+                *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gn_silu_forward failed with CUDA error {rc}")
     launches += 1

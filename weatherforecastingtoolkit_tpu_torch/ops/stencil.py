@@ -15,8 +15,9 @@ TPU kernel's bf16 residual is not ported).
 ``advection_diffusion_prior`` is differentiable in x, u, v and kappa: its
 forward is the kernel, its backward the autograd of the plain version,
 recomputed, as the JAX ``_prior_bwd`` differentiates the XLA version.
-Pass u, v and kappa as tensors on x's device to keep the training step free
-of host syncs; a Python float is copied to the device on every call.
+Pass u, v and kappa as fp32 tensors on x's device to keep the training step
+free of host syncs: the kernel reads them where they lie, and a call is one
+kernel launch. A Python float is copied to the device on every call.
 """
 
 from __future__ import annotations
@@ -55,15 +56,6 @@ def _frames_reference(x: torch.Tensor, u: Scalar, v: Scalar,
         x.transpose(1, 2).reshape(b * c, t, h, w), u, v, kappa)
 
 
-def _params(x: torch.Tensor, u: Scalar, v: Scalar,
-            kappa: Scalar) -> torch.Tensor:
-    """(u, v, kappa) as three fp32 values on x's device, without a host
-    round trip when they are tensors there already."""
-    return torch.stack([torch.as_tensor(s, dtype=torch.float32,
-                                        device=x.device).reshape(())
-                        for s in (u, v, kappa)])
-
-
 def advection_diffusion_loss(x: torch.Tensor, u: Scalar, v: Scalar,
                              kappa: Scalar) -> torch.Tensor:
     """Mean squared advection-diffusion residual over (B, T, C, H, W)."""
@@ -75,7 +67,9 @@ def advection_diffusion_loss(x: torch.Tensor, u: Scalar, v: Scalar,
         raise TypeError(f"the advection-diffusion prior takes fp32, got {x.dtype}")
     if x.device.type == "cpu":
         return _frames_reference(x, u, v, kappa)
-    return _cuda.advection_stencil_cuda(x, _params(x, u, v, kappa))
+    u, v, kappa = (torch.as_tensor(s, dtype=torch.float32, device=x.device)
+                   for s in (u, v, kappa))
+    return _cuda.advection_stencil_cuda_scalars(x, u, v, kappa)
 
 
 class AdvectionDiffusionPrior(torch.autograd.Function):
