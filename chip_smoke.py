@@ -29,8 +29,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      back empty late in this one), one GroupNormSiLU forward (fp32/bf16 x
      and parameters) and one stencil call = one operation on the card (by
      the profiler), and the serving profile
-     of a reference-shape and a fast-VAE bf16 call (kernels per call,
-     device-busy share, top five kernels);
+     of a reference-shape, a fast-VAE and an int8_static reference-shape
+     bf16 call (kernels per call, device-busy share, top five kernels);
   6. the advection-diffusion stencil kernel against its plain version
      (loss rel 1e-5 at the training shapes B=2 and B=32, odd sizes, C > 1,
      T = 2, 3x3 frames and a non-contiguous view; the same bits on two runs,
@@ -47,7 +47,35 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      B=32 beside the stencil kernel's time, plain time and bound;
   8. latent_forecast_task (Path-B training) on the reference-shape frozen
      VAE + DLinear at B=8: 3 steps with finite losses and the encoder's
-     GroupNorm launches, forward only, on every step.
+     GroupNorm launches, forward only, on every step; then one
+     Trainer.validate (decoded pixels, calc_metrics keys, no panels);
+  9. the int8 conv and quantize kernels against their plain versions (a
+     float64 conv of the same codes; the same bits, twice) at every int8
+     conv call shape of the two int8 serving calls (at N=4, and at the
+     serving N while timing) and at the edges (N=1, Cin=1, Cout=1, 13x17,
+     stride 2 with (0, 1) padding, Cin not a multiple of 16), fp32 and bf16
+     out; per call shape the kernel's time in a CUDA graph, its plain time,
+     its bound and, as context only, the bf16 cuDNN conv of that shape;
+ 10. quantized serving at full width: the reference VAE calibrated in fp32
+     on the B=64 serving batch (bench.py's recipe), the int8_static bf16
+     reference call at B=64 (median ms, frames/s, SSIM vs fp32, exactly
+     56 int8 convs + 56 quantize passes + 42 GroupNorms a call) and the fast
+     VAE under INT8_MIXED_SPEC in bf16 at B=256 (4 + 4 + 30 a call, SSIM vs
+     its own fp32); card against CPU on two sequences with the CPU's
+     calibration carried across: every int8 conv of the call gives the
+     CPU plain version's bits on the card's own input, and both int8 SSIMs
+     lie within 5e-3 of the CPU's;
+ 11. the ensemble rollout (reference VAE, B=8, 8 members): sigma=0 members
+     equal, bit for bit in fp32 and bf16, to the deterministic pipeline
+     on the batch tiled 8 times with the sequences encoded once; against
+     the deterministic call at B=8, SSIM >= 0.999 in fp32 (in bf16
+     printed, beside the deterministic call's own reading on the tiled
+     batch: the bf16 VAE is not batch-invariant to the last bit), sigma >
+     0 spread and time in bf16;
+     calibrate_noise_std over {0, 0.05, 0.1} on two batches, and
+     evaluate_protocol (with the VAE ceiling) on two B=16 batches of 25
+     frames, both tables printed; card against CPU on one B=2 batch in fp32
+     (continuous keys rel 1e-4, CSI/HSS abs 1e-3).
 The kernels build in parallel (one nvcc per source). fp32 runs with TF32
 off throughout. The line before the last is {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without a GPU it exits 2 and prints no
@@ -102,6 +130,23 @@ KERNEL_SOURCE = "weatherforecastingtoolkit_tpu_torch/csrc/groupnorm_silu.cu"
 REPLACES = "weatherforecastingtoolkit_tpu/ops/pallas/groupnorm.py:28"
 STENCIL_SOURCE = "weatherforecastingtoolkit_tpu_torch/csrc/advection_stencil.cu"
 STENCIL_REPLACES = "weatherforecastingtoolkit_tpu/ops/pallas/stencil.py:62"
+# The int8 kernels replace XLA ops of int8_conv_static, not TPU kernels
+INT8_SOURCE = "weatherforecastingtoolkit_tpu_torch/csrc/int8_conv.cu"
+INT8_CONV_REPLACES = "weatherforecastingtoolkit_tpu/ops/quant.py:161"
+QUANTIZE_REPLACES = "weatherforecastingtoolkit_tpu/ops/quant.py:151"
+INT8_OPS_PER_S = 1979e12       # H100 SXM data sheet, dense int8
+# bench.py:52, the JAX bench's fast-VAE mixed spec
+INT8_MIXED_SPEC = (("encoder/mid_block*", "int8_static"), ("*", "native"))
+# (N, H, W, Cin, Cout, k, stride, (top, bottom, left, right)): N=1, Cin=1,
+# Cout=1, an odd 13x17 frame, stride 2 with the VAE's (0, 1) padding, Cin
+# not a multiple of 16, the widest conv
+INT8_EDGE_CASES = [(1, 13, 17, 1, 64, 3, 1, (1, 1, 1, 1)),
+                   (4, 13, 17, 64, 1, 3, 1, (1, 1, 1, 1)),
+                   (4, 13, 17, 64, 128, 3, 2, (0, 1, 0, 1)),
+                   (3, 9, 7, 48, 24, 1, 1, (0, 0, 0, 0)),
+                   (1, 16, 16, 512, 512, 3, 1, (1, 1, 1, 1))]
+ENSEMBLE_BATCH, ENSEMBLE_MEMBERS, EVAL_BATCH = 8, 8, 16
+NOISE_STDS = (0.0, 0.05, 0.1)
 EF_CONFIG = os.path.join(REPO, "experiments", "earthformer", "config.yaml")
 EF_STEPS, EF_SEQ = 20, 25          # training steps at the config's batch
 TIMED_BATCHES = (2, 32)
@@ -329,11 +374,11 @@ def check_frames(out, shape):
         raise AssertionError("non-finite output")
 
 
-def stencil_bound(shape):
-    """Least time for the stencil: read x once (fp32) against 14 fp32 flops
-    per interior element and frame pair. Returns (ms, "bytes"|"operations")."""
+def stencil_bound(shape, elem_bytes=4):
+    """Least time for the stencil: read x once against 14 fp32 flops per
+    interior element and frame pair. Returns (ms, "bytes"|"operations")."""
     b, t, c, h, w = shape
-    bytes_ms = 1e3 * (b * t * c * h * w * 4 + 16) / HBM_BYTES_PER_S
+    bytes_ms = 1e3 * (b * t * c * h * w * elem_bytes + 16) / HBM_BYTES_PER_S
     ops_ms = 1e3 * 14 * b * c * (t - 1) * (h - 2) * (w - 2) / FP32_OPS_PER_S
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
@@ -411,7 +456,8 @@ def stencil_phase():
             x.transpose(1, 2).reshape(b * c, t, h, w), p[0], p[1], p[2])
 
     log("phase 6: stencil kernel vs plain (loss rel 1e-5, same bits twice "
-        "and on graph replay, one kernel a call, gradients rel 1e-5)")
+        "and on graph replay, one kernel a call, gradients rel 1e-5; fp32 "
+        "and bf16 x)")
     g = torch.Generator(device="cuda").manual_seed(6)
     cases = [(shape, torch.rand(shape, generator=g, device="cuda"))
              for shape in STENCIL_CLASSES]
@@ -473,6 +519,27 @@ def stencil_phase():
                                        msg=lambda m: f"grad {name} {shape}: {m}")
         log(f"  gradients x, u, v, kappa at {shape}: equal to the plain "
             f"autograd (rel 1e-5)")
+    # bf16 x: bf16 differences, fp32 residual, as the JAX kernel
+    for shape in ((2, 12, 1, 128, 128), (32, 12, 1, 128, 128),
+                  (3, 2, 4, 130, 97)):
+        x = (torch.rand(shape, generator=g, device="cuda") * 4 - 2).to(
+            torch.bfloat16)
+        p = torch.tensor((0.3, -0.2, 0.05), device="cuda")
+        got = cs.advection_stencil_cuda(x, p)
+        want = plain(x, p)
+        e = abs(float(got) - float(want))
+        if not (e <= 1e-5 * abs(float(want))
+                and torch.equal(got, cs.advection_stencil_cuda(x, p))):
+            raise AssertionError(f"stencil bf16 {shape}: kernel {float(got)} "
+                                 f"vs plain {float(want)}, or two runs differ")
+        msg = f"  bf16 {shape}: loss {float(got):.6g}, rel err {e / float(want):.3g}"
+        if shape[0] != 3:
+            ms = graph_ms(lambda: cs.advection_stencil_cuda(x, p), 100)
+            bound, _ = stencil_bound(shape, 2)
+            msg += (f"; kernel {ms * 1e3:.2f} us (CUDA graph), plain "
+                    f"{graph_ms(lambda: plain(x, p), 20) * 1e3:.2f} us, bound "
+                    f"{bound * 1e3:.3f} us ({bound / ms:.1%})")
+        log(msg + "; same bits twice")
     return err
 
 
@@ -625,7 +692,8 @@ def earthformer_phase(tmp):
 
 def latent_phase(tmp):
     """Phase 8: Path-B training (latent_forecast_task) on the frozen
-    reference-shape VAE + DLinear; GroupNorm launches forward only."""
+    reference-shape VAE + DLinear; GroupNorm launches forward only; then
+    Trainer.validate with the decoded frames' metrics."""
     import torch
 
     from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
@@ -648,7 +716,8 @@ def latent_phase(tmp):
                      for mod in vae.encoder.modules())
     task = latent_forecast_task(lambda f, rng: vae.encode(f).mode(),
                                 DLinear(T_IN, T_OUT, kernel_size=25),
-                                T_IN, T_OUT, LATENT_SHAPE)
+                                T_IN, T_OUT, LATENT_SHAPE,
+                                decode_apply=vae.decode)
     cfg = Config({"experiment_name": "latent_forecast", "seed": 0,
                   "experiment_path": os.path.join(tmp, "latent"),
                   "optim": {"schedule": "constant", "lr": 1e-3},
@@ -661,9 +730,18 @@ def latent_phase(tmp):
     groupnorm.launches = 0
     cs.launches = 0
     t0 = time.perf_counter()
-    tr.fit(batches)
+    state = tr.fit(batches)
     torch.cuda.synchronize()
     gn, st = groupnorm.launches, cs.launches
+    t1 = time.perf_counter()
+    val = tr.validate(state, vil_batches(1, LATENT_BATCH, seed=10), steps,
+                      log_images=False)
+    log(f"  Trainer.validate, one batch of {LATENT_BATCH} (decoded), "
+        f"{time.perf_counter() - t1:.2f} s: loss {val['loss']:.5f}, SSIM "
+        f"{val['SSIM']:.4f}, CSI-M {val['paper_CSI_M_POOL1']:.4f}, "
+        f"{len(val)} keys")
+    if not ("paper_HSS_POOL16" in val and all(np.isfinite(list(val.values())))):
+        raise AssertionError(f"Trainer.validate returned {sorted(val)}")
     tr.close()
     losses = [r["train_loss"] for r in read_jsonl_metrics(tr.run_dir)
               if "train_loss" in r]
@@ -680,12 +758,487 @@ def latent_phase(tmp):
     return gn
 
 
+def record_int8_calls(vae, fn):
+    """int8 conv calls of one fn() call (a warm-up) through vae, counted by
+    (N, H, W, Cin, Cout, k, stride, padding, dtype)."""
+    from weatherforecastingtoolkit_tpu_torch.ops.quant import QConv
+
+    calls = collections.Counter()
+
+    def hook(mod, args):
+        if mod.resolved in ("int8", "int8_static"):
+            n, c, h, w = args[0].shape
+            calls[(n, h, w, c, mod.weight.shape[0], mod.weight.shape[2],
+                   mod.stride[0], mod.pad, args[0].dtype)] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in vae.modules()
+               if isinstance(m, QConv)]
+    fn()
+    for hd in handles:
+        hd.remove()
+    return calls
+
+
+def int8_convs_match_cpu(card_vae, cpu_vae, fn):
+    """fn() (a call through card_vae) with every int8 conv of card_vae held
+    to the same conv of cpu_vae (the same weights and scales, the plain
+    version) on the card's own input: the same bits or fail. Returns (the
+    convs checked, fn()'s output)."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.quant import QConv
+
+    cpu_convs = {m.path: m for m in cpu_vae.modules() if isinstance(m, QConv)}
+    checked = []
+
+    def hook(mod, args, out):
+        with torch.no_grad():
+            want = cpu_convs[mod.path](args[0].cpu())
+        got = out.cpu()
+        if not torch.equal(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            raise AssertionError(f"int8 conv {mod.path}: card != CPU on the "
+                                 f"card's input, max abs err {err}")
+        checked.append(mod.path)
+
+    handles = [m.register_forward_hook(hook) for m in card_vae.modules()
+               if isinstance(m, QConv)
+               and m.resolved in ("int8", "int8_static")]
+    try:
+        out = fn()
+    finally:
+        for hd in handles:
+            hd.remove()
+    return len(checked), out
+
+
+def int8_codes(n, h, w, cin, cout, k, seed):
+    """Random int8 codes (N, H, W, Cp), weight codes (Cout, k, k, Cp), zero
+    past Cin, and an fp32 scale and bias, on the card."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cp = ic.padded_channels(cin)
+    xq = torch.randint(-127, 128, (n, h, w, cp), generator=g, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, k, k, cp), generator=g,
+                       device="cuda", dtype=torch.int8)
+    xq[..., cin:] = 0
+    wq[..., cin:] = 0
+    scale = torch.rand(cout, generator=g, device="cuda") * 1e-4
+    bias = torch.randn(cout, generator=g, device="cuda")
+    return xq, wq, scale, bias
+
+
+def int8_bound(n, h, w, cin, cout, k, stride, pad, out_bytes):
+    """Least time for one int8 conv: the codes (Cin channels) and weights
+    read once, scale and bias read once, y written once, against
+    2*M*Cout*K int8 operations (K = k*k*Cin). The zero channels the kernel
+    pads Cin with are its own cost, not the function's. Returns (ms, bytes
+    ms, operations ms)."""
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    ho, wo = ic.out_size(h, w, k, k, (stride, stride), pad)
+    nbytes = n * h * w * cin + cout * k * k * cin + 8 * cout + \
+        n * ho * wo * cout * out_bytes
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * n * ho * wo * cout * k * k * cin / INT8_OPS_PER_S
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def once_ms(fn):
+    """Device time of one fn() call (a large one), from CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def int8_bits(n, h, w, cin, cout, k, stride, pad, seed):
+    """The conv kernel twice and its plain version on the same random codes,
+    fp32 and bf16 out, with and without bias: the same bits or fail. The
+    quantize kernel on x of the input's shape, per channel and per tensor,
+    fp32 and bf16: the plain version's bits or fail."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    xq, wq, scale, bias = int8_codes(n, h, w, cin, cout, k, seed)
+    name = f"N={n} {h}x{w} {cin}->{cout} k{k} s{stride} pad {pad}"
+    for out in (torch.float32, torch.bfloat16):
+        for b in (bias, None):
+            got = ic.int8_conv2d_nhwc_cuda(xq, wq, scale, b, (stride,) * 2,
+                                           pad, out)
+            again = ic.int8_conv2d_nhwc_cuda(xq, wq, scale, b,
+                                             (stride,) * 2, pad, out)
+            want = ic.int8_conv2d_nhwc_plain(xq, wq, scale, b, (stride,) * 2,
+                                             pad, out)
+            if not (torch.equal(got, want) and torch.equal(got, again)):
+                err = float((got.float() - want.float()).abs().max())
+                raise AssertionError(f"int8 conv kernel != plain at {name} "
+                                     f"{out} bias={b is not None}: max abs "
+                                     f"err {err}, or two runs differ")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn((n, h, w, cin), generator=g, device="cuda") * 3.0
+    per_channel = torch.rand(cin, generator=g, device="cuda") / 40 + 1e-3
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (per_channel, per_channel.max()):
+            got = ic.quantize_nhwc_cuda(x.to(dtype), s)
+            if not torch.equal(got, ic.quantize_nhwc_plain(x.to(dtype), s)):
+                raise AssertionError(f"quantize kernel != plain at {name} "
+                                     f"{dtype} scales {tuple(s.shape)}")
+
+
+def int8_kernel_phase(ref_calls, fast_calls):
+    """Phase 9: the int8 kernels' bits at every call shape (at N=4) and at
+    the edges."""
+    log("phase 9: int8 conv and quantize kernels vs plain (float64 conv of "
+        "the same codes): the same bits, twice, fp32/bf16 out, with and "
+        "without bias; the quantize pass per channel and per tensor")
+    shapes = sorted({key[1:8] for key in list(ref_calls) + list(fast_calls)})
+    cases = [(4,) + shape for shape in shapes] + INT8_EDGE_CASES
+    for i, case in enumerate(cases):
+        int8_bits(*case, seed=900 + i)
+    log(f"  {len(shapes)} call shapes of the two int8 serving calls at N=4 "
+        f"and {len(INT8_EDGE_CASES)} edge cases: the same bits as the plain "
+        f"version, twice")
+
+
+def time_int8_calls(calls, title):
+    """Per int8 conv call shape at the serving N: the conv kernel in a CUDA
+    graph, the plain version (one call; its result must have the kernel's
+    bits), the bound, the bf16 cuDNN conv of that shape (context only: a
+    different function), and the quantize kernel, its plain version and
+    bound. Returns the per-call sums."""
+    import torch
+    import torch.nn.functional as F
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    log(f"{title}: per int8 conv call shape (bf16 out, as the calls run), "
+        f"device ms: conv kernel in a CUDA graph / plain / bound (share) | "
+        f"bf16 cuDNN conv (context) | quantize kernel / plain / bound")
+    keys = ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "cudnn_ms",
+            "q_ms", "q_plain_ms", "q_bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    for i, ((n, h, w, cin, cout, k, s, pad, dtype), count) in enumerate(
+            sorted(calls.items(), key=lambda kv: -np.prod(kv[0][:5]))):
+        xq, wq, scale, bias = int8_codes(n, h, w, cin, cout, k, 2000 + i)
+        args = (xq, wq, scale, bias, (s, s), pad, dtype)
+        ms = graph_ms(lambda: ic.int8_conv2d_nhwc_cuda(*args), 10)
+        got = ic.int8_conv2d_nhwc_cuda(*args)
+        want = []
+        plain = once_ms(lambda: want.append(ic.int8_conv2d_nhwc_plain(*args)))
+        if not torch.equal(got, want[0]):
+            raise AssertionError(f"int8 conv kernel != plain at the serving "
+                                 f"shape N={n} {h}x{w} {cin}->{cout}")
+        del got, want
+        bound, bytes_ms, ops_ms = int8_bound(n, h, w, cin, cout, k, s, pad, 2)
+        x16 = torch.randn((n, cin, h, w), device="cuda", dtype=dtype
+                          ).contiguous(memory_format=torch.channels_last)
+        w16 = torch.randn((cout, cin, k, k), device="cuda", dtype=dtype
+                          ).contiguous(memory_format=torch.channels_last)
+        t, b, l, r = pad
+        cudnn = graph_ms(lambda: F.conv2d(
+            F.pad(x16, (l, r, t, b)) if (t, l) != (b, r) else x16, w16, None,
+            s, 0 if (t, l) != (b, r) else (t, l)), 10)
+        del w16
+        x = x16.permute(0, 2, 3, 1)
+        sv = torch.rand(cin, device="cuda") / 40 + 1e-3
+        q_ms = graph_ms(lambda: ic.quantize_nhwc_cuda(x, sv), 10)
+        q_plain = event_ms(lambda: ic.quantize_nhwc_plain(x, sv), 2)
+        # x read, its Cin codes written (not the padding), the scales read
+        q_bound = 1e3 * (x.numel() * (x.element_size() + 1) + 4 * cin
+                         ) / HBM_BYTES_PER_S
+        log(f"  {count:2d} x N={n} {h}x{w} {cin}->{cout} k{k} s{s}: "
+            f"{ms:.4f} / {plain:.2f} / {bound:.4f} ({bound / ms:.0%}, "
+            f"{'ops' if ops_ms >= bytes_ms else 'bytes'}) | {cudnn:.4f} | "
+            f"{q_ms:.4f} / {q_plain:.4f} / {q_bound:.4f} "
+            f"({q_bound / q_ms:.0%})")
+        for key, v in zip(keys, (ms, plain, bound, bytes_ms, ops_ms, cudnn,
+                                 q_ms, q_plain, q_bound)):
+            tot[key] += count * v
+        del xq, wq, x16, x
+        torch.cuda.empty_cache()
+    log(f"  per call ({sum(calls.values())} int8 convs): conv kernel "
+        f"{tot['ms']:.3f} ms in CUDA graphs, plain {tot['plain_ms']:.2f}, "
+        f"bound {tot['bound_ms']:.3f} ({tot['bound_ms'] / tot['ms']:.1%} of "
+        f"the graph time; bytes {tot['bytes_ms']:.3f}, operations "
+        f"{tot['ops_ms']:.3f}); bf16 cuDNN {tot['cudnn_ms']:.3f}; quantize "
+        f"{tot['q_ms']:.3f}, plain {tot['q_plain_ms']:.3f}, bound "
+        f"{tot['q_bound_ms']:.3f} ({tot['q_bound_ms'] / tot['q_ms']:.1%})")
+    return tot
+
+
+def calibrate_vae(cfg, frames):
+    """bench.py's calibration recipe for a VAE of `cfg` (seed 0 weights):
+    encode the frames (fp32, conv_mode 'calibrate'), decode the mode."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+    from weatherforecastingtoolkit_tpu_torch.ops.quant import calibrate
+
+    device = frames.device
+    cvae = AutoencoderKL(**cfg, conv_mode="calibrate", seed=0, device=device)
+    flat = frames.reshape((-1,) + tuple(frames.shape[2:])).to(
+        torch.float32) * (1.0 / 255.0)
+    return calibrate(lambda m, f: m.decode(m.encode(f).mode()), cvae, [flat])
+
+
+def int8_serving_phase(frames, fast_frames, dlinear, out32, out_f32):
+    """Phase 10: quantized serving at full width, card against CPU. Returns
+    (the two calls' int8 conv shapes, the counted launches)."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
+    from weatherforecastingtoolkit_tpu_torch.models.rollout import (
+        make_forecast_pipeline)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    def int8_vae(cfg, mode, qscales, device=None):
+        vae = AutoencoderKL(**cfg, conv_mode=mode, seed=0, device=device)
+        vae.load_qscales(qscales)
+        return vae.to(torch.bfloat16)
+
+    def counted(name, fn, n, per_call, batch):
+        ic.conv_launches = ic.quantize_launches = groupnorm.launches = 0
+        times, out = wall_times(fn, n)
+        got = (ic.conv_launches, ic.quantize_launches, groupnorm.launches)
+        med = statistics.median(times)
+        log(f"{name}: median {med * 1e3:.2f} ms over {n} calls (min "
+            f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+            f"{batch * T_OUT / med:.1f} frames/s; launches int8 conv "
+            f"{got[0]}, quantize {got[1]}, GroupNorm {got[2]} "
+            f"({'/'.join(f'{v / n:g}' for v in got)} a call)")
+        if got != tuple(n * c for c in per_call):
+            raise AssertionError(f"{name}: launches {got}, expected "
+                                 f"{per_call} a call")
+        return out, got
+
+    log(f"phase 10: quantized serving, calibrated in fp32 on the serving "
+        f"batch (bench.py's recipe)")
+    t0 = time.perf_counter()
+    qs = calibrate_vae(REFERENCE_VAE, frames)
+    log(f"  reference VAE calibrated on {BATCH * T_IN} frames in "
+        f"{time.perf_counter() - t0:.2f} s ({len(qs)} convs)")
+    vae8 = int8_vae(REFERENCE_VAE, "int8_static", qs)
+    pipe8 = make_forecast_pipeline(**codec(vae8, torch.bfloat16))
+    ref_calls = record_int8_calls(vae8, lambda: pipe8(dlinear, frames))
+    out8, launches = counted(f"int8_static bf16 reference call B={BATCH}",
+                             lambda: pipe8(dlinear, frames), 10, (56, 56, 42),
+                             BATCH)
+    check_frames(out8, (BATCH, T_OUT, 1, HW, HW))
+    s8 = frame_ssim(out32, out8)
+    log(f"  int8_static vs fp32 SSIM {s8:.5f} (printed, no gate)")
+    del out8
+
+    qf = calibrate_vae(FAST_VAE, fast_frames)
+    fmix = int8_vae(FAST_VAE, INT8_MIXED_SPEC, qf)
+    pipe_m = make_forecast_pipeline(**codec(fmix, torch.bfloat16))
+    fast_calls = record_int8_calls(fmix, lambda: pipe_m(dlinear, fast_frames))
+    out_m, fast_launches = counted(
+        f"fast VAE INT8_MIXED_SPEC bf16 B={FAST_BATCH}",
+        lambda: pipe_m(dlinear, fast_frames), 10, (4, 4, 30), FAST_BATCH)
+    check_frames(out_m, (FAST_BATCH, T_OUT, 1, HW, HW))
+    s_mix = frame_ssim(out_f32, out_m)
+    log(f"  int8-mixed vs its own fp32 SSIM {s_mix:.5f} (printed, no gate)")
+    del out_m
+    torch.cuda.empty_cache()
+
+    # card against CPU on two sequences, the CPU's calibration on both
+    dl_cpu = DLinear(T_IN, T_OUT, kernel_size=25, device="cpu")
+    t0 = time.perf_counter()
+    for cfg, mode, card_vae, pipe, seqs, ref in (
+            (REFERENCE_VAE, "int8_static", vae8, pipe8, frames[:2], out32[:2]),
+            (FAST_VAE, INT8_MIXED_SPEC, fmix, pipe_m, fast_frames[:2],
+             out_f32[:2])):
+        q_cpu = calibrate_vae(cfg, seqs.cpu())
+        vae_cpu = AutoencoderKL(**cfg, seed=0, device="cpu")
+        cpu32 = make_forecast_pipeline(device="cpu", **codec(
+            vae_cpu, torch.float32))(dl_cpu, seqs.cpu())
+        vae8_cpu = int8_vae(cfg, mode, q_cpu, "cpu")
+        cpu8 = make_forecast_pipeline(device="cpu", **codec(
+            vae8_cpu, torch.bfloat16))(dl_cpu, seqs.cpu())
+        card_vae.load_qscales(q_cpu)
+        n_convs, out = int8_convs_match_cpu(card_vae, vae8_cpu,
+                                            lambda: pipe(dlinear, seqs))
+        s_card = frame_ssim(ref, out)
+        s_cpu = frame_ssim(cpu32, cpu8)
+        name = "int8_static reference" if isinstance(mode, str) else \
+            "fast int8-mixed"
+        log(f"  {name}, sequences 0-1, CPU calibration: each of the call's "
+            f"{n_convs} int8 convs gave the CPU's bits on the card's own "
+            f"input; SSIM vs fp32 card {s_card:.5f}, CPU {s_cpu:.5f} (within "
+            f"5e-3)")
+        if n_convs != (56 if isinstance(mode, str) else 4):
+            raise AssertionError(f"{name}: {n_convs} int8 convs checked")
+        if not abs(s_card - s_cpu) <= 5e-3:
+            raise AssertionError(f"{name} SSIM card {s_card} vs CPU {s_cpu}")
+    log(f"  card vs CPU checks in {time.perf_counter() - t0:.2f} s")
+    return ref_calls, fast_calls, launches, fast_launches
+
+
+def _metric_gap(card, cpu):
+    """(largest rel diff of the continuous keys, largest abs diff of the
+    CSI/HSS keys) between two metric dicts."""
+    cont, count = 0.0, 0.0
+    for k, v in cpu.items():
+        d = abs(card[k] - v)
+        if k.startswith(("CSI", "HSS", "paper_CSI", "paper_HSS")):
+            count = max(count, d)
+        else:
+            cont = max(cont, d / max(abs(v), 1e-12))
+    return cont, count
+
+
+def ensemble_eval_phase(frames, dlinear):
+    """Phase 11: the ensemble rollout, calibrate_noise_std and
+    evaluate_protocol on the card, and evaluate_protocol card vs CPU."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.evaluation import (
+        evaluate_protocol)
+    from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
+    from weatherforecastingtoolkit_tpu_torch.models.rollout import (
+        calibrate_noise_std, make_ensemble_eval_fn, make_ensemble_pipeline,
+        make_eval_fn, make_forecast_pipeline)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+
+    vae32 = AutoencoderKL(**REFERENCE_VAE, seed=0)
+    vae16 = copy.deepcopy(vae32).to(torch.bfloat16)
+    a32, args = codec(vae32, torch.float32), codec(vae16, torch.bfloat16)
+    pipe16 = make_forecast_pipeline(**args)
+    ens = make_ensemble_pipeline(n_members=ENSEMBLE_MEMBERS, **args)
+    x = frames[:ENSEMBLE_BATCH]
+    log(f"phase 11: ensemble rollout, reference VAE, B={ENSEMBLE_BATCH}, "
+        f"{ENSEMBLE_MEMBERS} members")
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def members(out):  # (N*B, ...) member-major -> (B, N, ...)
+        return out.reshape((ENSEMBLE_MEMBERS, ENSEMBLE_BATCH)
+                           + tuple(out.shape[1:])).transpose(0, 1)
+
+    def encode_once(a):
+        # the deterministic pipeline on the frames tiled N times, with the
+        # B sequences encoded once and their latents tiled, as the
+        # ensemble does
+        def encode(f):
+            z = a["encode_apply"](f[:f.shape[0] // ENSEMBLE_MEMBERS])
+            return z.repeat((ENSEMBLE_MEMBERS,) + (1,) * (z.ndim - 1))
+        return dict(a, encode_apply=encode)
+
+    tiled = x.repeat((ENSEMBLE_MEMBERS, 1, 1, 1, 1))
+    worst, self_ssim = {}, {}
+    for name, a in (("fp32", a32), ("bf16", args)):
+        out0 = make_ensemble_pipeline(n_members=ENSEMBLE_MEMBERS, **a)(
+            dlinear, x, gen(0), 0.0)
+        check_frames(out0, (ENSEMBLE_BATCH, ENSEMBLE_MEMBERS, T_OUT, 1, HW,
+                            HW))
+        same = members(make_forecast_pipeline(**encode_once(a))(dlinear,
+                                                                 tiled))
+        if not torch.equal(out0, same):
+            raise AssertionError(f"{name}: the sigma=0 members are not the "
+                                 f"deterministic path's bits")
+        det = make_forecast_pipeline(**a)(dlinear, x)
+        worst[name] = min(frame_ssim(out0[:, m], det)
+                          for m in range(ENSEMBLE_MEMBERS))
+        det64 = members(make_forecast_pipeline(**a)(dlinear, tiled))
+        self_ssim[name] = min(frame_ssim(det64[:, m], det)
+                              for m in range(ENSEMBLE_MEMBERS))
+        del out0, same, det, det64
+    log(f"  sigma=0: the members equal, bit for bit, the deterministic "
+        f"pipeline on the batch tiled {ENSEMBLE_MEMBERS} times with the "
+        f"sequences encoded once (fp32 and bf16). Every member vs the "
+        f"deterministic call at B={ENSEMBLE_BATCH}: SSIM >= "
+        f"{worst['fp32']:.6f} in fp32 (gate 0.999), >= {worst['bf16']:.5f} "
+        f"in bf16 (printed: the deterministic call itself on the tiled "
+        f"batch reads >= {self_ssim['bf16']:.5f} against it in bf16, "
+        f"{self_ssim['fp32']:.6f} in fp32; the VAE's kernels are not batch-"
+        f"invariant to the last bit)")
+    if not worst["fp32"] >= 0.999:
+        raise AssertionError(f"sigma=0 member SSIM {worst}")
+    times, out1 = wall_times(lambda: ens(dlinear, x, gen(1), 0.1), 5)
+    spread = float(out1.float().std(dim=1).mean())
+    med = statistics.median(times)
+    log(f"  sigma=0.1: member spread (mean std) {spread:.5f}; median "
+        f"{med * 1e3:.2f} ms over 5 calls, "
+        f"{ENSEMBLE_BATCH * ENSEMBLE_MEMBERS * T_OUT / med:.1f} member "
+        f"frames/s")
+    if not spread > 0:
+        raise AssertionError("sigma > 0 gave no member spread")
+    del out1
+
+    seqs = [b["vil"] for b in vil_batches(2, ENSEMBLE_BATCH, seed=11)]
+    best, table = calibrate_noise_std(
+        make_ensemble_eval_fn(ens, T_IN, T_OUT), dlinear, seqs, NOISE_STDS,
+        seed=0)
+    log(f"  calibrate_noise_std, 2 batches of {ENSEMBLE_BATCH}: CRPS by noise "
+        "std "
+        + ", ".join(f"{k:g}: {v:.6f}" for k, v in table.items())
+        + f"; best {best:g}")
+    if best != min(table, key=table.get):
+        raise AssertionError(f"calibrate_noise_std picked {best} of {table}")
+
+    def protocol(pipe, a, batches, device=None):
+        def roundtrip(m, target):
+            b, t = target.shape[:2]
+            flat = target.reshape((b * t,) + tuple(target.shape[2:]))
+            return a["decode_apply"](a["encode_apply"](flat)).reshape(
+                target.shape)
+
+        return evaluate_protocol(make_eval_fn(pipe, T_IN, T_OUT, device=device),
+                                 dlinear if device is None else dl_cpu,
+                                 batches, roundtrip_fn=roundtrip)
+
+    dl_cpu = DLinear(T_IN, T_OUT, kernel_size=25, device="cpu")
+    evals = [b["vil"] for b in vil_batches(2, EVAL_BATCH, seed=12)]
+    t0 = time.perf_counter()
+    report = protocol(pipe16, args, evals)
+    log(f"  evaluate_protocol, bf16, 2 batches of {EVAL_BATCH} x {EF_SEQ} "
+        f"frames, in {time.perf_counter() - t0:.2f} s:")
+    for line in report.format_table("eval").splitlines():
+        log(f"    {line}")
+    del vae16, pipe16, ens
+    torch.cuda.empty_cache()
+
+    vae_cpu = AutoencoderKL(**REFERENCE_VAE, seed=0, device="cpu")
+    a_cpu = codec(vae_cpu, torch.float32)
+    one = [evals[0][:2]]
+    card = protocol(make_forecast_pipeline(**a32), a32, one)
+    cpu = protocol(make_forecast_pipeline(device="cpu", **a_cpu), a_cpu, one,
+                   device="cpu")
+    gaps = [_metric_gap(getattr(card, k), getattr(cpu, k))
+            for k in ("model", "persistence", "ceiling")]
+    cont, count = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    log(f"  evaluate_protocol card vs CPU, fp32, one batch of 2: continuous "
+        f"keys max rel diff {cont:.3g} (1e-4), CSI/HSS max abs diff "
+        f"{count:.3g} (1e-3); wins {card.wins} and {cpu.wins}")
+    if not (cont <= 1e-4 and count <= 1e-3):
+        raise AssertionError(f"card vs CPU metrics differ: {cont}, {count}")
+
+
 def profile_phase():
     """Phase 5's torch.profiler checks, run as ``chip_smoke.py --profile`` in
     a fresh process: one GroupNormSiLU forward and one stencil call are each
     exactly one operation on the card (torch.profiler); the
-    serving profile of one reference-shape bf16 call (B=64) and one
-    fast-VAE bf16 call (B=256): kernels per call, the device's busy share
+    serving profile of one reference-shape bf16 call (B=64), one fast-VAE
+    bf16 call (B=256) and one int8_static reference-shape bf16 call (B=64,
+    calibrated on its batch): kernels per call, the device's busy share
     and the top five kernels."""
     import torch
 
@@ -727,12 +1280,18 @@ def profile_phase():
     log(f"  one stencil call = one kernel on the card ({name[:40]}; "
         f"advection_stencil_cuda and advection_diffusion_prior)")
     dlinear = DLinear(T_IN, T_OUT, kernel_size=25)
-    for cfg, batch, title in ((REFERENCE_VAE, BATCH, "reference-shape"),
-                              (FAST_VAE, FAST_BATCH, "fast-VAE")):
+    for cfg, batch, title, mode in (
+            (REFERENCE_VAE, BATCH, "reference-shape", "native"),
+            (FAST_VAE, FAST_BATCH, "fast-VAE", "native"),
+            (REFERENCE_VAE, BATCH, "reference-shape int8_static",
+             "int8_static")):
         events = synthetic_vil_events(batch, HW, HW, T_IN, seed=0)
         frames = torch.from_numpy(np.ascontiguousarray(
             np.transpose(events, (0, 3, 1, 2))[:, :, None])).cuda()
-        vae = AutoencoderKL(**cfg, seed=0).to(torch.bfloat16)
+        vae = AutoencoderKL(**cfg, conv_mode=mode, seed=0)
+        if mode == "int8_static":
+            vae.load_qscales(calibrate_vae(cfg, frames))
+        vae = vae.to(torch.bfloat16)
         pipe = make_forecast_pipeline(**codec(vae, torch.bfloat16))
         check_frames(pipe(dlinear, frames), (batch, T_OUT, 1, HW, HW))
         log_profile(f"  serving profile, {title} bf16 B={batch}",
@@ -759,6 +1318,7 @@ def main():
     from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
         AutoencoderKL)
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import (
         stencil as stencil_cuda)
 
@@ -778,13 +1338,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
-        for fut in [pool.submit(k.build) for k in (groupnorm, stencil_cuda)]:
+    kernels = (groupnorm, stencil_cuda, int8_conv)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # one nvcc each
+        for fut in [pool.submit(k.build) for k in kernels]:
             fut.result()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s in parallel (nvcc "
         f"groupnorm_silu.cu {groupnorm.build_seconds:.2f} s, "
-        f"advection_stencil.cu {stencil_cuda.build_seconds:.2f} s)")
-    for kernel in (groupnorm, stencil_cuda):
+        f"advection_stencil.cu {stencil_cuda.build_seconds:.2f} s, "
+        f"int8_conv.cu {int8_conv.build_seconds:.2f} s)")
+    for kernel in kernels:
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kernel.SOURCE.name}: {line.strip()}")
@@ -934,7 +1496,7 @@ def main():
     if not s_tick > 0.99:
         raise AssertionError(f"streaming tick vs batch SSIM {s_tick}")
 
-    del out32, out16, pipe32, ar16
+    del out16, pipe32, ar16
     torch.cuda.empty_cache()
 
     # fast serving VAE, B=256
@@ -957,7 +1519,7 @@ def main():
         f"(gate > {SSIM_GATE})")
     if not s_fast > SSIM_GATE:
         raise AssertionError(f"fast-VAE bf16 vs fp32 SSIM {s_fast}")
-    del out_f16, out_f32, fast16, fast32, fvae32, fvae16, fast_frames
+    del out_f16, fast16, fast32, fvae32, fvae16
     torch.cuda.empty_cache()
 
     # -------------------- 5. card against CPU, and the kernel's own times
@@ -1039,7 +1601,6 @@ def main():
     fast_tot, _ = time_gn_calls(fast_gn_calls,
                                 f"fast-VAE bf16 B={FAST_BATCH}")
     tot, err = time_gn_calls(gn_calls, f"reference-shape bf16 B={BATCH}")
-    del frames, dlinear
     torch.cuda.empty_cache()
 
     # torch.profiler in a fresh process: in this one, after the phases
@@ -1056,6 +1617,16 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ------------------------------ 9.-11. quantized serving, verification
+    ref_calls, fast_calls, int8_launches, _ = int8_serving_phase(
+        frames, fast_frames, dlinear, out32, out_f32)
+    del out32, out_f32, fast_frames
+    torch.cuda.empty_cache()
+    int8_kernel_phase(ref_calls, fast_calls)
+    time_int8_calls(fast_calls, f"fast VAE INT8_MIXED_SPEC bf16 B={FAST_BATCH}")
+    i8 = time_int8_calls(ref_calls, f"int8_static reference bf16 B={BATCH}")
+    ensemble_eval_phase(frames, dlinear)
+
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "group_norm_silu", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1069,7 +1640,18 @@ def main():
         "launches": stencil_launches,
         "max_abs_err": max(stencil_err, fit_err), "ms": st["ms"],
         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-        "bound_by": st["bound_by"], "library_ms": None}]}))
+        "bound_by": st["bound_by"], "library_ms": None}, {
+        "name": "int8_conv2d", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_CONV_REPLACES, "launches": int8_launches[0],
+        "max_abs_err": 0.0, "ms": i8["ms"], "plain_ms": i8["plain_ms"],
+        "bound_ms": i8["bound_ms"],
+        "bound_by": "bytes" if i8["bytes_ms"] >= i8["ops_ms"] else "operations",
+        "library_ms": None}, {
+        "name": "quantize_nhwc", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": QUANTIZE_REPLACES, "launches": int8_launches[1],
+        "max_abs_err": 0.0, "ms": i8["q_ms"], "plain_ms": i8["q_plain_ms"],
+        "bound_ms": i8["q_bound_ms"], "bound_by": "bytes",
+        "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -190,8 +190,12 @@ def test_qconv_promotes_and_rejects_unported_modes():
     torch.nn.init.ones_(conv.weight)
     y = conv(torch.ones(1, 2, 2, 2, dtype=torch.bfloat16))
     assert y.dtype == torch.float32          # bf16 x fp32 kernel -> fp32
+    # every mode of the JAX package is ported (ops/quant.py); an unknown
+    # one is still rejected with the JAX message
+    x = torch.ones(1, 2, 2, 2)
     for mode in ("int8", "int8_static", "calibrate", "fake_quant"):
-        with pytest.raises(NotImplementedError):
-            PQConv(2, 3, 1, mode=mode)
-    with pytest.raises(ValueError):
+        out = PQConv(2, 3, 1, mode=mode)
+        torch.nn.init.ones_(out.weight)
+        assert torch.equal(out(x), conv(x.to(torch.bfloat16))), mode
+    with pytest.raises(ValueError, match="not in"):
         PQConv(2, 3, 1, mode="int4")

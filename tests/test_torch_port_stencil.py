@@ -63,6 +63,68 @@ def test_loss_matches_jax_pallas_and_xla(shape, u, v, kappa):
     assert got == pytest.approx(want_xla, rel=1e-5)
 
 
+@pytest.mark.parametrize("shape,u,v,kappa", CASES[:2])
+def test_bf16_loss_and_gradients_match_jax(shape, u, v, kappa):
+    """bf16 x, fp32 u, v, kappa: the loss within rel 1e-3 of the Pallas
+    kernel (interpret mode) and the XLA version (bf16 rounding of the
+    differences, which XLA may keep in more precision); gradients of the
+    prior within rel 1e-2 of jax.grad of the JAX custom VJP."""
+    import jax
+    import jax.numpy as jnp
+    from weatherforecastingtoolkit_tpu.ops.pallas.stencil import (
+        advection_diffusion_loss, advection_diffusion_prior)
+
+    x = _x(shape, seed=11) * 4.0 - 2.0
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    coeffs = [jnp.asarray(c, jnp.float32) for c in (u, v, kappa)]
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    got = ps.advection_diffusion_loss(tx, u, v, kappa)
+    assert got.dtype == torch.float32
+    for use_pallas in (True, False):
+        want = float(advection_diffusion_loss(jx, *coeffs, use_pallas=use_pallas,
+                                              interpret=True))
+        assert float(got) == pytest.approx(want, rel=1e-3)
+    jgrads = jax.grad(lambda *a: advection_diffusion_prior(*a, True),
+                      argnums=(0, 1, 2, 3))(jx, *coeffs)
+    leaves = [tx.clone().requires_grad_()] + [
+        torch.tensor(c, requires_grad=True) for c in (u, v, kappa)]
+    ps.advection_diffusion_prior(*leaves).backward()
+    assert leaves[0].grad.dtype == torch.bfloat16
+    gx = np.asarray(jgrads[0].astype(jnp.float32))
+    np.testing.assert_allclose(leaves[0].grad.float().numpy(), gx, rtol=1e-2,
+                               atol=1e-2 * float(np.abs(gx).max()))
+    for t, g in zip(leaves[1:], jgrads[1:]):
+        assert float(t.grad) == pytest.approx(float(g), rel=1e-2, abs=1e-6)
+
+
+def test_bf16_plain_version_rounds_each_difference():
+    """The plain version on bf16 x equals an fp32 residual built from bf16
+    differences, each operation rounded to bf16 (numpy, fp64-summed)."""
+    import ml_dtypes  # noqa: F401  (numpy's bfloat16, installed with JAX)
+
+    x = _x((1, 3, 9, 11), seed=12) * 8.0 - 4.0
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = float(ps.advection_diffusion_residual_reference(xb, 0.3, -0.2, 0.1))
+    a = xb.float().numpy()
+    bf = np.dtype("bfloat16")
+
+    def r16(v):
+        return np.asarray(v, np.float32).astype(bf).astype(np.float32)
+
+    rs = []
+    for k in range(a.shape[1] - 1):
+        x0, x1 = a[0, k], a[0, k + 1]
+        dt = r16(x1 - x0)[1:-1, 1:-1]
+        dh = r16(r16(x0[2:, 1:-1] - x0[:-2, 1:-1]) * 0.5)
+        dw = r16(r16(x0[1:-1, 2:] - x0[1:-1, :-2]) * 0.5)
+        lap = r16(r16(r16(r16(x0[2:, 1:-1] + x0[:-2, 1:-1]) + x0[1:-1, 2:])
+                      + x0[1:-1, :-2]) - r16(4.0 * x0[1:-1, 1:-1]))
+        u, v, kap = (np.float32(c) for c in (0.3, -0.2, 0.1))
+        rs.append(((dt + u * dw) + v * dh) - kap * lap)
+    want = float((np.stack(rs).astype(np.float64) ** 2).mean())
+    assert got == pytest.approx(want, rel=1e-5)
+
+
 def test_plain_version_matches_numpy():
     """rel 1e-5 against an fp64-summed numpy residual over (N, T, H, W)."""
     x = _x((2, 4, 10, 12), seed=1)
@@ -98,9 +160,9 @@ def test_refusals():
         ps.advection_diffusion_loss(x, 0.0, 0.0, 0.05)
     with pytest.raises(ValueError, match="at least 2 frames"):
         ps.advection_diffusion_prior(x, 0.0, 0.0, 0.05)
-    with pytest.raises(TypeError, match="fp32"):
+    with pytest.raises(TypeError, match="fp32 or bf16"):
         ps.advection_diffusion_loss(torch.zeros(1, 2, 1, 8, 8,
-                                                dtype=torch.bfloat16), 0, 0, 0)
+                                                dtype=torch.float16), 0, 0, 0)
     with pytest.raises(ValueError, match=r"\(B, T, C, H, W\)"):
         ps.advection_diffusion_loss(torch.zeros(2, 8, 8), 0, 0, 0)
     before = cs.launches
@@ -186,6 +248,23 @@ def test_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernel_matches_plain_bf16(cuda_device):
+    """bf16 x: within rel 1e-5 of the plain version on the same card tensor
+    (the same bf16 differences; another order of the fp32 sum), the same
+    bits twice, aligned and unaligned widths."""
+    for i, shape in enumerate(CUDA_SHAPES):
+        x = torch.from_numpy(_x(shape, seed=20 + i) * 4.0 - 2.0).to(
+            cuda_device, torch.bfloat16)
+        params = torch.tensor([0.3, -0.2, 0.05], device=cuda_device)
+        got = ps.advection_diffusion_loss(x, *params)
+        assert torch.equal(got, ps.advection_diffusion_loss(x, *params))
+        want = ps.advection_diffusion_residual_reference(
+            x.transpose(1, 2).reshape(-1, shape[1], shape[3], shape[4]),
+            *params)
+        assert float(got) == pytest.approx(float(want), rel=1e-5), shape
+
+
+@pytest.mark.cuda
 def test_kernel_takes_a_non_contiguous_view(cuda_device):
     base = torch.from_numpy(_x((2, 12, 3, 64, 64), seed=7)).to(cuda_device)
     x = base[:, :, 1:2]                     # (2, 12, 1, 64, 64), offset view
@@ -197,9 +276,9 @@ def test_kernel_takes_a_non_contiguous_view(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_refusals(cuda_device):
-    with pytest.raises(TypeError, match="fp32"):
+    with pytest.raises(TypeError, match="fp32 or bf16"):
         cs.advection_stencil_cuda(
-            torch.zeros(1, 2, 1, 8, 8, device=cuda_device, dtype=torch.bfloat16),
+            torch.zeros(1, 2, 1, 8, 8, device=cuda_device, dtype=torch.float16),
             torch.zeros(3, device=cuda_device))
     with pytest.raises(ValueError, match="H >= 3"):
         cs.advection_stencil_cuda(torch.zeros(1, 2, 1, 2, 8, device=cuda_device),

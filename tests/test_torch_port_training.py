@@ -320,10 +320,11 @@ def test_validate_loss_only_and_unported_parts(tmp_path):
     assert t.validate(state, val, step=0)["loss"] == pytest.approx(want)
     t.close()
     task = _tiny_task()
-    task.eval_fn = lambda model, batch, rng: (None, None)
+    field = torch.full((1, 2, 1, 16, 16), 0.5)
+    task.eval_fn = lambda model, batch, rng: (field, field)
     t2 = ptrainer.Trainer(cfg, task, device="cpu")
-    with pytest.raises(NotImplementedError, match="metrics slice"):
-        t2.validate(t2.init_state(), val, step=0)
+    out = t2.validate(t2.init_state(), val, step=0)
+    assert out["SSIM"] == pytest.approx(1.0) and out["CSI_0"] == pytest.approx(1.0)
     t2.close()
     with pytest.raises(NotImplementedError, match="distributed slice"):
         ptrainer.Trainer(cfg, _tiny_task(), mesh=object(), device="cpu")
@@ -331,9 +332,9 @@ def test_validate_loss_only_and_unported_parts(tmp_path):
         ptrainer.Trainer(cfg.merge({"trainer": {"fsdp": True}}), _tiny_task(),
                          device="cpu")
     logger = RunLogger(str(tmp_path / "log"))
-    with pytest.raises(NotImplementedError, match="metrics slice"):
-        logger.log_images(np.zeros((1, 2, 8, 8)), np.zeros((1, 2, 8, 8)),
-                          "panels", 0)
+    logger.log_images(np.zeros((1, 2, 8, 8)), np.ones((1, 2, 1, 8, 8)),
+                      "val panels", 0)
+    assert (tmp_path / "log" / "media" / "val_panels_step0_b0.png").exists()
     logger.log_histograms({"w": np.arange(5.0)}, 3)
     logger.close()
 

@@ -110,5 +110,10 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_conv_modes_raise():
-    with pytest.raises(NotImplementedError):
-        AutoencoderKL(**SMALL, conv_mode="int8", device="cpu")
+    """Every conv mode of the JAX package is ported now (the quantized ones
+    are held to JAX in test_torch_port_quant.py); an unknown mode raises."""
+    model = AutoencoderKL(**SMALL, conv_mode="int8", device="cpu")
+    with torch.no_grad():
+        assert torch.isfinite(model(torch.rand(1, 1, 32, 32))).all()
+    with pytest.raises(ValueError, match="not in"):
+        AutoencoderKL(**SMALL, conv_mode="int4", device="cpu")

@@ -9,12 +9,19 @@ present and the CPU was not asked for.
 Ported so far:
   * the Path-B serving rollout: the frozen ``AutoencoderKL`` (its
     GroupNorm+SiLU a hand-written Hopper kernel, ``ops/cuda/groupnorm.py``),
-    ``DLinear``, and the one-shot, autoregressive and streaming pipelines;
-  * the training harness (``training/``: ``Trainer``, optimizer and
-    schedules, checkpoints, logging, ``latent_forecast_task``), ``Config``,
-    the transformer blocks and ``Earthformer``, and the advection-diffusion
-    prior (``ops/stencil.py``, its forward a hand-written Hopper kernel,
-    ``ops/cuda/stencil.py``).
+    the forecasters (``DLinear``, ``LinearForecaster``, ``PerPixelLinear``,
+    ``TimeMLP``), and the one-shot, autoregressive, streaming and ensemble
+    pipelines;
+  * quantized serving (``ops/quant.py``: ``QConv`` in all five conv modes
+    and mixed per-layer specs, calibration), its int8 convs a hand-written
+    Hopper int8 tensor-core kernel (``ops/cuda/int8_conv.py``);
+  * verification: ``metrics.calc_metrics`` (CSI/HSS/CRPS/SSIM/PSNR and the
+    ``paper_*`` aggregates) and the evaluation protocol (``evaluation.py``);
+  * the training harness (``training/``: ``Trainer`` with metric
+    validation, optimizer and schedules, checkpoints, logging,
+    ``latent_forecast_task``), ``Config``, the transformer blocks and
+    ``Earthformer``, and the advection-diffusion prior (``ops/stencil.py``,
+    its forward a hand-written Hopper kernel, ``ops/cuda/stencil.py``).
 """
 
 __version__ = "0.1.0"
@@ -27,12 +34,15 @@ _LAZY = {
     "DLinear": ".models.forecasters",
     "Earthformer": ".models.earthformer",
     "make_forecast_pipeline": ".models.rollout",
+    "make_ensemble_pipeline": ".models.rollout",
     "make_streaming_forecaster": ".models.rollout",
     "persistence_baseline": ".models.rollout",
     "Trainer": ".training.trainer",
     "latent_forecast_task": ".training.tasks",
     "CheckpointManager": ".training.checkpoint",
     "build_optimizer": ".training.trainer",
+    "evaluate_protocol": ".evaluation",
+    "EvalReport": ".evaluation",
 }
 
 

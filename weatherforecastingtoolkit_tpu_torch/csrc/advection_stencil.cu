@@ -2,11 +2,19 @@
 //
 // Replaces the TPU kernel weatherforecastingtoolkit_tpu/ops/pallas/stencil.py
 // `_stencil_kernel` (launched by `advection_diffusion_loss`). It computes the
-// same function on x of shape (B, T, C, H, W), fp32: for every frame pair
-// (x0, x1) = (x[b, t, c], x[b, t+1, c]) the interior residual
+// same function on x of shape (B, T, C, H, W), fp32 or bf16: for every frame
+// pair (x0, x1) = (x[b, t, c], x[b, t+1, c]) the interior residual
 //   r = (x1 - x0) + u * dx0/dw + v * dx0/dh - kappa * lap(x0)
 // with central differences and the 5-point Laplacian, and returns
 // sum(r^2) / (n * (H-2) * (W-2)), n = B * C * (T-1).
+//
+// bf16 x: the differences dt, dh, dw and lap are bf16, each operation
+// rounded to bf16 (from its fp32 result) left to right as the JAX source
+// writes them: dt = x1 - x0, dh = (dn - up) * 0.5, dw = (rt - lf) * 0.5,
+// lap = (((dn + up) + rt) + lf) - 4 * c. u, v and kappa are fp32 (the
+// kernel's params_ref), so under jnp's promotion u*dw, v*dh, kappa*lap and
+// r = ((dt + u*dw) + v*dh) - kappa*lap are fp32, as are r^2 and the sum.
+// The tiles hold bf16 in shared memory; the fp32 path is unchanged.
 //
 // Bound: device-memory bytes. The function reads x once (B*T*C*H*W*4 bytes)
 // and does 14 flops per interior element and pair. At the training batch of
@@ -46,8 +54,11 @@
 // launch a ticket counter of its own.
 
 #include <cuda/atomic>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -121,16 +132,19 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
   }
 }
 
-// The band of frame `src` (rows row0-1 .. row0+rows, contiguous) into `dst`.
-template <bool VEC4>
-__device__ __forceinline__ void load_band(float* dst, const float* src,
-                                          int count) {
+// The band of frame `src` (rows row0-1 .. row0+rows, contiguous) into `dst`:
+// 16-byte copies (VEC4), else 4-byte copies (fp32) or plain stores (bf16).
+template <typename E, bool VEC4>
+__device__ __forceinline__ void load_band(E* dst, const E* src, int count) {
+  constexpr int kVec = 16 / sizeof(E);
   if (VEC4) {
-    for (int i = threadIdx.x; i < count / 4; i += kThreads)
-      cp_async<16>(dst + 4 * i, src + 4 * i);
-  } else {
+    for (int i = threadIdx.x; i < count / kVec; i += kThreads)
+      cp_async<16>(dst + kVec * i, src + kVec * i);
+  } else if (std::is_same<E, float>::value) {
     for (int i = threadIdx.x; i < count; i += kThreads)
       cp_async<4>(dst + i, src + i);
+  } else {
+    for (int i = threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
   }
   cp_async_commit();
 }
@@ -144,6 +158,46 @@ __device__ __forceinline__ float residual2(float cen, float up, float dn,
   const float lap = dn + up + rt + lf - 4.0f * cen;
   const float r = dt + u * dw + v * dh - kappa * lap;
   return r * r;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// r^2 for bf16 x (see the header): the differences rounded to bf16 one
+// operation at a time, the residual in fp32 without contraction.
+__device__ __forceinline__ float residual2_bf16(float cen, float up, float dn,
+                                                float lf, float rt, float nxt,
+                                                float u, float v,
+                                                float kappa) {
+  const float dt = bf16_round(nxt - cen);
+  const float dh = bf16_round(bf16_round(dn - up) * 0.5f);
+  const float dw = bf16_round(bf16_round(rt - lf) * 0.5f);
+  const float lap = bf16_round(
+      bf16_round(bf16_round(bf16_round(dn + up) + rt) + lf) -
+      bf16_round(4.0f * cen));
+  const float r = __fsub_rn(
+      __fadd_rn(__fadd_rn(dt, __fmul_rn(u, dw)), __fmul_rn(v, dh)),
+      __fmul_rn(kappa, lap));
+  return __fmul_rn(r, r);
+}
+
+// Sum of r^2 over the columns of interior row i of pair (a, b), bf16 x:
+// threads along the row, one element each (VEC4 only shapes the copies).
+template <bool VEC4>
+__device__ __forceinline__ float row_sum(const __nv_bfloat16* a,
+                                         const __nv_bfloat16* b, int i, int w,
+                                         float u, float v, float kappa) {
+  const int tx = threadIdx.x % kTX;
+  const __nv_bfloat16* row = a + i * w;
+  float s = 0.f;
+  for (int j = 1 + tx; j < w - 1; j += kTX)
+    s += residual2_bf16(
+        __bfloat162float(row[j]), __bfloat162float(row[j - w]),
+        __bfloat162float(row[j + w]), __bfloat162float(row[j - 1]),
+        __bfloat162float(row[j + 1]), __bfloat162float(b[i * w + j]), u, v,
+        kappa);
+  return s;
 }
 
 // Sum of r^2 over the columns of interior row i of pair (a, b), threads
@@ -182,17 +236,18 @@ __device__ __forceinline__ float row_sum(const float* a, const float* b,
 }
 
 // grid: B * C * bands blocks; block = (b, c, band). Dynamic shared memory:
-// ring * (band_rows + 2) * W floats. part: one float a block; ticket: an
+// ring * (band_rows + 2) * W elements. part: one float a block; ticket: an
 // unsigned counter that is zero between launches.
-template <bool VEC4>
+template <typename E, bool VEC4>
 __global__ void __launch_bounds__(kThreads)
-stencil_fused(const float* __restrict__ x, const float* __restrict__ u_ptr,
+stencil_fused(const E* __restrict__ x, const float* __restrict__ u_ptr,
               const float* __restrict__ v_ptr,
               const float* __restrict__ kappa_ptr, float* __restrict__ part,
               unsigned* __restrict__ ticket, float* __restrict__ out, int T,
               int C, int H, int W, int64_t sb, int64_t st, int64_t sc,
               int band_rows, int bands, int ring, double denom) {
-  extern __shared__ __align__(16) float tiles[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* const tiles = reinterpret_cast<E*>(smem_raw);
   __shared__ float warps[kWarps];
   __shared__ double sums[kWarps];
   __shared__ bool last;
@@ -205,7 +260,7 @@ stencil_fused(const float* __restrict__ x, const float* __restrict__ u_ptr,
   const int rows = min(band_rows, H - 1 - row0);
   const int count = (rows + 2) * W;
   const int pitch = (band_rows + 2) * W;
-  const float* frame0 = x + b * sb + c * sc + static_cast<int64_t>(row0 - 1) * W;
+  const E* frame0 = x + b * sb + c * sc + static_cast<int64_t>(row0 - 1) * W;
   const float u = *u_ptr;
   const float v = *v_ptr;
   const float kappa = *kappa_ptr;
@@ -216,19 +271,20 @@ stencil_fused(const float* __restrict__ x, const float* __restrict__ u_ptr,
     // every frame of the band in flight at once; then the (pair, row) tasks
     // spread over the thread rows
     for (int f = 0; f < T; ++f)
-      load_band<VEC4>(tiles + f * pitch, frame0 + f * st, count);
+      load_band<E, VEC4>(tiles + f * pitch, frame0 + f * st, count);
     cp_async_wait<0>();
     __syncthreads();
     for (int task = ty; task < (T - 1) * rows; task += kTY) {
       const int t = task / rows;
-      const float* a = tiles + t * pitch;
+      const E* a = tiles + t * pitch;
       s += row_sum<VEC4>(a, a + pitch, 1 + task - t * rows, W, u, v, kappa);
     }
   } else {
     // a ring: the first `ring` frames in flight, then one more a pair
     int issued = 0;
     for (; issued < ring; ++issued)
-      load_band<VEC4>(tiles + issued * pitch, frame0 + issued * st, count);
+      load_band<E, VEC4>(tiles + issued * pitch, frame0 + issued * st,
+                         count);
     int slot0 = 0;
     for (int t = 0; t + 1 < T; ++t) {
       cp_async_wait_pending(issued - (t + 2));
@@ -239,7 +295,8 @@ stencil_fused(const float* __restrict__ x, const float* __restrict__ u_ptr,
                            u, v, kappa);
       __syncthreads();  // frame t's slot is free
       if (issued < T) {
-        load_band<VEC4>(tiles + slot0 * pitch, frame0 + issued * st, count);
+        load_band<E, VEC4>(tiles + slot0 * pitch, frame0 + issued * st,
+                           count);
         ++issued;
       }
       slot0 = slot1;
@@ -278,8 +335,8 @@ stencil_fused(const float* __restrict__ x, const float* __restrict__ u_ptr,
   }
 }
 
-template <bool VEC4>
-cudaError_t launch(const float* x, const float* u, const float* v,
+template <typename E, bool VEC4>
+cudaError_t launch(const E* x, const float* u, const float* v,
                    const float* kappa, float* part, unsigned* ticket,
                    float* out, int64_t b, int t, int c, int h, int w,
                    int64_t sb, int64_t st, int64_t sc, int band_rows,
@@ -288,11 +345,11 @@ cudaError_t launch(const float* x, const float* u, const float* v,
   const int64_t blocks = b * c * bands;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem =
-      static_cast<size_t>(ring) * (band_rows + 2) * w * sizeof(float);
-  auto kernel = stencil_fused<VEC4>;
+      static_cast<size_t>(ring) * (band_rows + 2) * w * sizeof(E);
+  auto kernel = stencil_fused<E, VEC4>;
   // shared memory beyond the default 48 KB a block (static included) only
   // after opting in: all a block can have, once per device
-  static bool configured[64] = {};
+  static bool configured[64] = {};  // one flag set per instantiation
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -320,25 +377,38 @@ cudaError_t launch(const float* x, const float* u, const float* v,
 
 }  // namespace
 
-// x: (B, T, C, H, W) fp32 with element strides sb, st, sc for B, T, C and
-// each (H, W) frame dense; T >= 2, H >= 3, W >= 3. u, v, kappa: one fp32 each
-// on the device. part: B*C*bands fp32, bands = ceil((H-2) / band_rows).
-// ticket: one unsigned, zero. out: 1 fp32. vec4: 16-byte copies (W % 4 == 0,
-// x and the strides 16-byte aligned). ring: frames kept on chip, 2..16.
+// x: (B, T, C, H, W) fp32, or bf16 when bf16 != 0, with element strides sb,
+// st, sc for B, T, C and each (H, W) frame dense; T >= 2, H >= 3, W >= 3. u,
+// v, kappa: one fp32 each on the device. part: B*C*bands fp32, bands =
+// ceil((H-2) / band_rows). ticket: one unsigned, zero. out: 1 fp32. vec4:
+// 16-byte copies (W a multiple of 16 bytes' elements, x and the strides
+// 16-byte aligned). ring: frames kept on chip, 2..16.
 extern "C" int advection_stencil_forward(
-    const float* x, const float* u, const float* v, const float* kappa,
+    const void* x, const float* u, const float* v, const float* kappa,
     float* part, unsigned* ticket, float* out, long long b, int t, int c,
     int h, int w, long long sb, long long st, long long sc, int band_rows,
-    int ring, int vec4, void* stream) {
+    int ring, int vec4, int bf16, void* stream) {
   if (t < 2 || h < 3 || w < 3 || band_rows < 1 || b < 1 || c < 1 ||
-      ring < 2 || ring > kMaxRing || (vec4 && w % 4))
+      ring < 2 || ring > kMaxRing || (vec4 && w % (bf16 ? 8 : 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      vec4 ? launch<true>(x, u, v, kappa, part, ticket, out, b, t, c, h, w, sb,
-                          st, sc, band_rows, ring, s)
-           : launch<false>(x, u, v, kappa, part, ticket, out, b, t, c, h, w,
-                           sb, st, sc, band_rows, ring, s);
+  cudaError_t err;
+  if (bf16) {
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    err = vec4 ? launch<__nv_bfloat16, true>(xb, u, v, kappa, part, ticket,
+                                             out, b, t, c, h, w, sb, st, sc,
+                                             band_rows, ring, s)
+               : launch<__nv_bfloat16, false>(xb, u, v, kappa, part, ticket,
+                                              out, b, t, c, h, w, sb, st, sc,
+                                              band_rows, ring, s);
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    err = vec4 ? launch<float, true>(xf, u, v, kappa, part, ticket, out, b, t,
+                                     c, h, w, sb, st, sc, band_rows, ring, s)
+               : launch<float, false>(xf, u, v, kappa, part, ticket, out, b,
+                                      t, c, h, w, sb, st, sc, band_rows, ring,
+                                      s);
+  }
   return static_cast<int>(err);
 }
 

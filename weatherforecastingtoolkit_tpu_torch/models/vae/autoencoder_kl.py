@@ -7,10 +7,16 @@ Public contract, NCHW at the API edge:
   forward(x, sample_posterior, generator) -> recon [, posterior]
 
 Inside, activations and conv weights are ``channels_last``, the layout
-cuDNN's tensor-core convolutions take without a transpose. Weights are made
-from ``seed`` with flax's initializers, so a seed gives the same weights on
-every device. ``state_dict_from_flax`` carries JAX-package params across;
-the JAX ``from_torch_state_dict`` loads this module's ``state_dict``.
+cuDNN's tensor-core convolutions take without a transpose and the int8
+conv kernel reads as NHWC. Weights are made from ``seed`` with flax's
+initializers, so a seed gives the same weights on every device.
+``state_dict_from_flax`` carries JAX-package params across; the JAX
+``from_torch_state_dict`` loads this module's ``state_dict`` in every conv
+mode. ``conv_mode`` is a mode of ``ops/quant.py`` or a mixed spec, resolved
+at each conv's flax path (``encoder/down_blocks_1/resnets_0/conv1``);
+``quant_conv`` and ``post_quant_conv`` are plain convs, as in JAX.
+Calibration scales (``load_qscales``, ``qscales_from_flax``) live outside
+the state dict.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...ops.quant import ConvMode, QConv
 from ...utils.device import DeviceLike, resolve_device
 from ..common import (depth_to_space, lecun_normal_, nchw_to_nhwc,
                       nhwc_to_nchw, space_to_depth)
@@ -39,8 +46,8 @@ class AutoencoderKL(nn.Module):
     ``fused_norm``, ``use_slicing`` and ``remat`` are accepted for signature
     parity with the JAX module. On a CUDA tensor every GroupNorm runs the
     Hopper kernel whatever ``fused_norm`` says; slicing is a no-op as in JAX;
-    ``remat`` (activation recompute) matters only to training, which this
-    package does not run yet.
+    ``remat`` (activation recompute in training) is not ported: the VAE
+    trains only in the GAN slice, and the Path-B tasks keep it frozen.
     """
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3,
@@ -48,7 +55,7 @@ class AutoencoderKL(nn.Module):
                  layers_per_block: int = 1, latent_channels: int = 4,
                  norm_num_groups: int = 32, scaling_factor: float = 0.18215,
                  use_slicing: bool = False, fused_norm: bool = False,
-                 conv_mode: str = "native", remat: bool = False,
+                 conv_mode: ConvMode = "native", remat: bool = False,
                  pixel_unshuffle: int = 1,
                  scales: Optional[Sequence[int]] = None, *,
                  device: DeviceLike = None, seed: int = 0):
@@ -76,6 +83,22 @@ class AutoencoderKL(nn.Module):
         self.to_empty(device="cpu")
         self._init_weights(np.random.default_rng(seed))
         self.to(device=device, memory_format=_CL)
+        for name, m in self.named_modules():
+            if isinstance(m, QConv):
+                m.set_path(flax_path(name))
+
+    def load_qscales(self, qscales: Mapping[str, torch.Tensor]) -> None:
+        """Give every conv that reads calibration scales its act_absmax from
+        {flax conv path: (Cin,)} (``calibrate`` or ``qscales_from_flax``);
+        a conv missing from the dict gets ones, as JAX's default."""
+        for m in self.modules():
+            if isinstance(m, QConv) and m.act_absmax is not None:
+                v = qscales.get(m.path)
+                with torch.no_grad():
+                    if v is None:
+                        m.act_absmax.fill_(1.0)
+                    else:
+                        m.act_absmax.copy_(torch.as_tensor(v))
 
     @torch.no_grad()
     def _init_weights(self, rng: np.random.Generator) -> None:
@@ -127,6 +150,13 @@ def _torch_key(flax_path: str) -> str:
     mods = [re.sub(r"_(\d+)$", r".\1", m) for m in mods]
     return ".".join(mods + [{"kernel": "weight", "scale": "weight",
                              "bias": "bias"}[leaf]])
+
+
+def flax_path(module_name: str) -> str:
+    """'encoder.down_blocks.1.resnets.0.conv1' ->
+    'encoder/down_blocks_1/resnets_0/conv1' (the inverse of ``_torch_key``'s
+    renaming, joined as flax joins a module path)."""
+    return re.sub(r"\.(\d+)(?=\.|$)", r"_\1", module_name).replace(".", "/")
 
 
 def _torch_tensor(leaf: str, v: np.ndarray) -> torch.Tensor:

@@ -5,6 +5,9 @@ Module names give the reference torch keys (``resnets.0.norm1.weight``,
 ``downsamplers.0.conv.weight``, ``attentions.0.query.weight``, ...), so the
 JAX ``from_torch_state_dict`` loads a port ``state_dict`` strictly.
 
+Convs are ``QConv``s in the mode their ``conv_mode`` spec resolves to at
+their flax path (``AutoencoderKL`` sets the paths).
+
 Every GroupNorm — ``ResnetBlock2D`` norm1/norm2, the stacks'
 ``conv_norm_out`` and the attention norm (eps 1e-5, no SiLU) — goes through
 ``ops/cuda/groupnorm.py::group_norm_silu``: the Hopper kernel on a CUDA
@@ -21,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.cuda.groupnorm import group_norm_silu
-from ...ops.quant import QConv
+from ...ops.quant import ConvMode, QConv
 
 
 def _rescale(x: torch.Tensor, factor: float) -> torch.Tensor:
@@ -54,7 +57,7 @@ class GroupNormSiLU(nn.Module):
 class ResnetBlock2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  groups: int = 32, eps: float = 1e-6,
-                 output_scale_factor: float = 1.0, conv_mode: str = "native"):
+                 output_scale_factor: float = 1.0, conv_mode: ConvMode = "native"):
         super().__init__()
         out_ch = out_channels or in_channels
         self.output_scale_factor = output_scale_factor
@@ -74,23 +77,24 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Stride-2 3x3 conv with the VAE's asymmetric (0, 1) edge padding."""
+    """Stride-2 3x3 conv with the VAE's asymmetric (0, 1) edge padding, as
+    conv padding: a quantized conv reads it without a padded copy."""
 
     def __init__(self, channels: int, out_channels: Optional[int] = None,
-                 conv_mode: str = "native"):
+                 conv_mode: ConvMode = "native"):
         super().__init__()
         self.conv = QConv(channels, out_channels or channels, 3, stride=2,
-                          mode=conv_mode)
+                          padding=((0, 1), (0, 1)), mode=conv_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 1, 0, 1)))
+        return self.conv(x)
 
 
 class Upsample2D(nn.Module):
     """2x nearest-neighbour upsample + 3x3 conv."""
 
     def __init__(self, channels: int, out_channels: Optional[int] = None,
-                 conv_mode: str = "native"):
+                 conv_mode: ConvMode = "native"):
         super().__init__()
         self.conv = QConv(channels, out_channels or channels, 3, padding=1,
                           mode=conv_mode)
@@ -104,7 +108,7 @@ class Downsample4x(nn.Module):
     """Two stacked stride-2 downsamples (torch keys down1.conv/down2.conv)."""
 
     def __init__(self, channels: int, out_channels: Optional[int] = None,
-                 conv_mode: str = "native"):
+                 conv_mode: ConvMode = "native"):
         super().__init__()
         out_ch = out_channels or channels
         self.down1 = Downsample2D(channels, out_ch, conv_mode)
@@ -118,7 +122,7 @@ class Upsample4x(nn.Module):
     """Two stacked 2x upsamples (torch keys up1.conv/up2.conv)."""
 
     def __init__(self, channels: int, out_channels: Optional[int] = None,
-                 conv_mode: str = "native"):
+                 conv_mode: ConvMode = "native"):
         super().__init__()
         out_ch = out_channels or channels
         self.up1 = Upsample2D(channels, out_ch, conv_mode)
@@ -172,7 +176,7 @@ class DownEncoderBlock2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  num_layers: int = 1, resnet_groups: int = 32,
                  resnet_eps: float = 1e-6, add_downsample: bool = True,
-                 scale: int = 2, conv_mode: str = "native"):
+                 scale: int = 2, conv_mode: ConvMode = "native"):
         super().__init__()
         self.resnets = nn.ModuleList(
             ResnetBlock2D(in_channels if i == 0 else out_channels,
@@ -196,7 +200,7 @@ class UpDecoderBlock2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  num_layers: int = 1, resnet_groups: int = 32,
                  resnet_eps: float = 1e-6, add_upsample: bool = True,
-                 scale: int = 2, conv_mode: str = "native"):
+                 scale: int = 2, conv_mode: ConvMode = "native"):
         super().__init__()
         self.resnets = nn.ModuleList(
             ResnetBlock2D(in_channels if i == 0 else out_channels,
@@ -221,7 +225,7 @@ class UNetMidBlock2D(nn.Module):
                  resnet_eps: float = 1e-6,
                  attn_num_head_channels: Optional[int] = None,
                  output_scale_factor: float = 1.0, num_layers: int = 1,
-                 conv_mode: str = "native"):
+                 conv_mode: ConvMode = "native"):
         super().__init__()
         self.resnets = nn.ModuleList(
             ResnetBlock2D(channels, channels, resnet_groups, resnet_eps,

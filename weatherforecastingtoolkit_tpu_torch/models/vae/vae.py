@@ -12,7 +12,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ...ops.quant import QConv
+from ...ops.quant import ConvMode, QConv
 from .blocks import (DownEncoderBlock2D, GroupNormSiLU, UNetMidBlock2D,
                      UpDecoderBlock2D)
 
@@ -26,7 +26,7 @@ class Encoder(nn.Module):
                  layers_per_block: int = 2, norm_num_groups: int = 32,
                  double_z: bool = True,
                  scales: Optional[Sequence[int]] = None,
-                 conv_mode: str = "native"):
+                 conv_mode: ConvMode = "native"):
         super().__init__()
         boc = tuple(block_out_channels)
         n = len(boc)
@@ -60,7 +60,7 @@ class Decoder(nn.Module):
                  block_out_channels: Sequence[int] = (64,),
                  layers_per_block: int = 2, norm_num_groups: int = 32,
                  scales: Optional[Sequence[int]] = None,
-                 conv_mode: str = "native"):
+                 conv_mode: ConvMode = "native"):
         super().__init__()
         rev = tuple(reversed(tuple(block_out_channels)))
         n = len(rev)

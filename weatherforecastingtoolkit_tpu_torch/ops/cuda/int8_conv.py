@@ -1,0 +1,227 @@
+"""int8 convolution and activation quantization: the hand-written Hopper
+kernels and their plain PyTorch versions.
+
+No TPU kernel stands behind these. They replace the XLA op the JAX package's
+int8 convs run, ``lax.conv_general_dilated(xq, wq, ...,
+preferred_element_type=jnp.int32)`` followed by the fp32 epilogue
+(weatherforecastingtoolkit_tpu/ops/quant.py, ``int8_conv`` :104-112 and
+``int8_conv_static`` :159-167), for which PyTorch has no CUDA counterpart.
+
+``int8_conv2d_nhwc`` computes y = round_to(out_dtype)(fp32(acc) * scale +
+bias) with acc the int32 sum of int8 codes over kh x kw x Cin, zero outside
+the image; ``quantize_nhwc`` computes q = clamp(rint(x / s), -127, 127) in one
+pass over x, with s per channel or one device scalar. Both kernels live in
+``csrc/int8_conv.cu``: the conv is an implicit GEMM on ``mma.sync`` s8 tensor
+cores (bound by its int8 operations at the VAE's wide convs, by bytes at
+Cout = 1), the quantize pass is bound by bytes.
+
+Input channels are padded to a multiple of 16 with zero codes (exact): the
+quantize pass writes the padding into its output, and ``pad_channels`` pads
+the (small) weight codes. ``_tile`` picks the kernel's output-tile width
+from Cout; it is pure, so the CPU tests check it.
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises. The plain conv is ``F.conv2d`` in float64 on the codes
+(exact: every sum stays far below 2**53) cast to int32, then the same
+epilogue in torch; the card's kernel gives its bits. The kernels are built
+with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (keyed by a hash
+of the source) and bound with ``ctypes``. ``conv_launches`` and
+``quantize_launches`` count calls that launched each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .build import CSRC, nvcc_build
+
+SOURCE = CSRC / "int8_conv.cu"
+CHANNEL_ALIGN = 16      # input channels are padded to this (16-byte pieces)
+
+# Numbers of kernel launches since the last reset (a caller sets them to 0).
+conv_launches = 0
+quantize_launches = 0
+# The last nvcc run in this process: seconds and output (ptxas -v).
+build_seconds = 0.0
+build_log = ""
+_lib: Optional[ctypes.CDLL] = None
+
+Pad = Tuple[int, int, int, int]
+
+
+def padded_channels(c: int) -> int:
+    return -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
+
+
+def pad_channels(wq: torch.Tensor) -> torch.Tensor:
+    """Weight codes (Cout, kh, kw, Cin) with Cin padded by zero codes."""
+    extra = padded_channels(wq.shape[-1]) - wq.shape[-1]
+    return F.pad(wq, (0, extra)) if extra else wq
+
+
+def out_size(h: int, w: int, kh: int, kw: int, strides: Tuple[int, int],
+             pad: Pad) -> Tuple[int, int]:
+    t, b, l, r = pad
+    return ((h + t + b - kh) // strides[0] + 1,
+            (w + l + r - kw) // strides[1] + 1)
+
+
+def _tile(cout: int) -> int:
+    """The conv kernel's tile (csrc/int8_conv.cu): 0, 128 output channels
+    wide, for Cout >= 128; 1, 64 wide, above 16; 2, 16 wide, up to 16."""
+    if cout >= 128:
+        return 0
+    return 1 if cout > 16 else 2
+
+
+# ------------------------------------------------------------ plain versions
+def quantize_nhwc_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x (N, H, W, C) fp32/bf16, s (C,) or 0-d fp32 -> int8 codes
+    (N, H, W, Cp), channels C..Cp zero."""
+    s = s.to(device=x.device, dtype=torch.float32)
+    q = torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+    return pad_channels(q).contiguous()
+
+
+def int8_conv2d_nhwc_plain(xq: torch.Tensor, wq: torch.Tensor,
+                           scale: torch.Tensor, bias: Optional[torch.Tensor],
+                           strides: Tuple[int, int], pad: Pad,
+                           out_dtype: torch.dtype) -> torch.Tensor:
+    """Codes xq (N, H, W, Cp), wq (Cout, kh, kw, Cp) -> y (N, Ho, Wo, Cout):
+    the float64 conv of the codes cast to int32, then fp32(acc) * scale +
+    bias rounded to out_dtype, one operation at a time."""
+    t, b, l, r = pad
+    xd = F.pad(xq.permute(0, 3, 1, 2).double().contiguous(), (l, r, t, b))
+    acc = F.conv2d(xd, wq.permute(0, 3, 1, 2).double().contiguous(),
+                   stride=strides)
+    y = acc.to(torch.int32).float() * scale[:, None, None]
+    if bias is not None:
+        y = y + bias[:, None, None]
+    return y.to(out_dtype).permute(0, 2, 3, 1).contiguous()
+
+
+# ------------------------------------------------------------------ kernels
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    so, seconds, out = nvcc_build(SOURCE)
+    if seconds:
+        build_seconds, build_log = seconds, out
+    lib = ctypes.CDLL(str(so))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.int8_conv2d_forward.argtypes = [p, p, p, p, p, i] + [i] * 14 + [p]
+    lib.int8_conv2d_forward.restype = i
+    lib.int8_quantize_forward.argtypes = [p, i, p, i, p, ll, i, i, p]
+    lib.int8_quantize_forward.restype = i
+    _lib = lib
+    return lib
+
+
+def _on_device(t: torch.Tensor, x: torch.Tensor, name: str) -> None:
+    if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous fp32 on {x.device}, got "
+                         f"{t.dtype} on {t.device}")
+
+
+def quantize_nhwc_cuda(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The quantize kernel: x (N, H, W, C) contiguous fp32/bf16 on the card,
+    s (C,) or one fp32 value on x's device -> codes (N, H, W, Cp)."""
+    global quantize_launches
+    if not x.is_cuda:
+        raise ValueError(f"quantize_nhwc_cuda needs a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantize_nhwc_cuda takes fp32 or bf16, got {x.dtype}")
+    if x.ndim != 4 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous (N, H, W, C) tensor, got "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    c = x.shape[-1]
+    _on_device(s, x, "s")
+    if s.numel() not in (1, c):
+        raise ValueError(f"s holds {s.numel()} scales for {c} channels")
+    lib = build()
+    cp = padded_channels(c)
+    q = torch.empty(x.shape[:-1] + (cp,), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.int8_quantize_forward(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), s.data_ptr(),
+            int(s.numel() == c and s.ndim == 1), q.data_ptr(),
+            x.numel() // c, c, cp, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_quantize_forward failed with CUDA error {rc}")
+    quantize_launches += 1
+    return q
+
+
+def int8_conv2d_nhwc_cuda(xq: torch.Tensor, wq: torch.Tensor,
+                          scale: torch.Tensor, bias: Optional[torch.Tensor],
+                          strides: Tuple[int, int], pad: Pad,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """The conv kernel on codes xq (N, H, W, Cp) and wq (Cout, kh, kw, Cp),
+    Cp a multiple of 16, both contiguous int8 on the card."""
+    global conv_launches
+    for name, t in (("xq", xq), ("wq", wq)):
+        if not t.is_cuda:
+            raise ValueError(f"int8_conv2d_nhwc_cuda needs CUDA tensors, "
+                             f"{name} is on {t.device}")
+        if t.dtype != torch.int8 or t.ndim != 4 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous 4-D int8, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if wq.device != xq.device:
+        raise ValueError(f"wq on {wq.device}, xq on {xq.device}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int8_conv2d_nhwc_cuda writes fp32 or bf16, not {out_dtype}")
+    n, h, w, cp = xq.shape
+    cout, kh, kw, wcp = wq.shape
+    if cp % CHANNEL_ALIGN or wcp != cp:
+        raise ValueError(f"input channels {cp} and weight channels {wcp} "
+                         f"must match and be a multiple of {CHANNEL_ALIGN}")
+    _on_device(scale, xq, "scale")
+    if bias is not None:
+        _on_device(bias, xq, "bias")
+    for t in (scale,) + (() if bias is None else (bias,)):
+        if t.shape != (cout,):
+            raise ValueError(f"scale and bias must be ({cout},), got {tuple(t.shape)}")
+    if min(strides) < 1 or min(pad) < 0:
+        raise ValueError(f"strides {strides} and padding {pad}")
+    ho, wo = out_size(h, w, kh, kw, strides, pad)
+    if ho < 1 or wo < 1:
+        raise ValueError(f"no output for {h}x{w} with a {kh}x{kw} kernel")
+    lib = build()
+    y = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=xq.device)
+    with torch.cuda.device(xq.device):
+        rc = lib.int8_conv2d_forward(
+            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            int(out_dtype == torch.bfloat16), n, h, w, cp, cout, kh, kw,
+            strides[0], strides[1], pad[0], pad[2], ho, wo, _tile(cout),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_conv2d_forward failed with CUDA error {rc}")
+    conv_launches += 1
+    return y
+
+
+# ----------------------------------------------------------------- dispatch
+def quantize_nhwc(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int8 codes of x (N, H, W, C): the kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return quantize_nhwc_plain(x, s)
+    return quantize_nhwc_cuda(x, s)
+
+
+def int8_conv2d_nhwc(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                     bias: Optional[torch.Tensor], strides: Tuple[int, int],
+                     pad: Pad, out_dtype: torch.dtype) -> torch.Tensor:
+    """The int8 conv with its epilogue: the kernel on CUDA tensors, the
+    plain version on CPU tensors. pad is (top, bottom, left, right)."""
+    if xq.device.type == "cpu":
+        return int8_conv2d_nhwc_plain(xq, wq, scale, bias, strides, pad,
+                                      out_dtype)
+    return int8_conv2d_nhwc_cuda(xq, wq, scale, bias, strides, pad, out_dtype)

@@ -74,7 +74,8 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     fn = lib.advection_stencil_forward
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, ll, ll, ll, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, ll, ll, ll, i, i, i, i,
+                   p]
     fn.restype = ctypes.c_int
     lib.advection_stencil_capture_id.argtypes = [p]
     lib.advection_stencil_capture_id.restype = ctypes.c_ulonglong
@@ -83,7 +84,8 @@ def build() -> ctypes.CDLL:
 
 
 def _band(b: int, c: int, t: int, h: int, w: int) -> Tuple[int, int]:
-    """(interior rows a block, frames kept on chip) for x (B, T, C, H, W)."""
+    """(interior rows a block, frames kept on chip) for x (B, T, C, H, W),
+    planned at 4 bytes an element (a bf16 band takes half of it)."""
     row_bytes = 4 * w
     rows = max(MIN_BAND_ROWS, -(-(h - 2) * b * c // TARGET_BLOCKS))
     rows = min(rows, MAX_BAND_ROWS, h - 2)
@@ -123,8 +125,8 @@ def _check(x: torch.Tensor) -> torch.Tensor:
     (a copy only when it is not)."""
     if not x.is_cuda:
         raise ValueError(f"advection_stencil_cuda needs a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"advection_stencil_cuda takes fp32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"advection_stencil_cuda takes fp32 or bf16, got {x.dtype}")
     if x.ndim != 5:
         raise ValueError(f"expected (B, T, C, H, W), got {tuple(x.shape)}")
     b, t, c, h, w = x.shape
@@ -148,8 +150,9 @@ def _launch(x: torch.Tensor, u: int, v: int, kappa: int) -> torch.Tensor:
     b, t, c, h, w = x.shape
     sb, st, sc = x.stride()[:3]
     rows, ring = _band(b, c, t, h, w)
-    vec4 = w % 4 == 0 and x.data_ptr() % 16 == 0 and not (sb % 4 or st % 4
-                                                           or sc % 4)
+    per16 = 16 // x.element_size()      # elements a 16-byte copy
+    vec4 = w % per16 == 0 and x.data_ptr() % 16 == 0 and not (
+        sb % per16 or st % per16 or sc % per16)
     part = torch.empty(b * c * -(-(h - 2) // rows), device=x.device)
     out = torch.empty((), device=x.device)
     stream = torch.cuda.current_stream().cuda_stream
@@ -159,7 +162,7 @@ def _launch(x: torch.Tensor, u: int, v: int, kappa: int) -> torch.Tensor:
         x.data_ptr(), u, v, kappa, part.data_ptr(),
         _ticket(index, capture, stream),
         out.data_ptr(), b, t, c, h, w, sb, st, sc, rows, ring, int(vec4),
-        stream)
+        int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"advection_stencil_forward failed with CUDA error {rc}")
     launches += 1
@@ -168,7 +171,8 @@ def _launch(x: torch.Tensor, u: int, v: int, kappa: int) -> torch.Tensor:
 
 def advection_stencil_cuda(x: torch.Tensor,
                            params: torch.Tensor) -> torch.Tensor:
-    """Mean squared residual of x (B, T, C, H, W) fp32 on the card; params
+    """Mean squared residual of x (B, T, C, H, W) fp32 or bf16 on the card
+    (bf16 differences, fp32 residual, as ``ops/stencil.py`` says); params
     holds (u, v, kappa) as three fp32 values on x's device. Returns a 0-d
     fp32 tensor. Launches on PyTorch's current stream; no host sync."""
     x = _check(x)

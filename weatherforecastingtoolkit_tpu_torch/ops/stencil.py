@@ -9,8 +9,10 @@ central differences and the 5-point Laplacian.
 
 Dispatch: a CPU tensor takes ``advection_diffusion_residual_reference``; a
 CUDA tensor launches the Hopper kernel (``ops/cuda/stencil.py``) or raises.
-Nothing falls back quietly. Both take fp32 only (no caller passes bf16; the
-TPU kernel's bf16 residual is not ported).
+Nothing falls back quietly. Both take fp32 or bf16 x. With bf16 x the
+differences dt, dh, dw and lap are bf16 (each operation rounded, left to
+right as written) and, as jnp promotes them with the TPU kernel's fp32 u, v
+and kappa, the residual, its square and the mean are fp32.
 
 ``advection_diffusion_prior`` is differentiable in x, u, v and kappa: its
 forward is the kernel, its backward the autograd of the plain version,
@@ -35,7 +37,9 @@ def advection_diffusion_residual_reference(x: torch.Tensor, u: Scalar,
                                            v: Scalar, kappa: Scalar
                                            ) -> torch.Tensor:
     """Plain version, a copy of ``advection_diffusion_residual_xla``:
-    x (..., T, H, W) -> mean squared interior residual."""
+    x (..., T, H, W) -> mean squared interior residual. The differences are
+    in x's dtype, the residual in fp32 (jnp's promotion with fp32 u, v,
+    kappa; torch would keep a 0-d fp32 tensor times bf16 in bf16)."""
     x0 = x[..., :-1, :, :]
     x1 = x[..., 1:, :, :]
     dt = x1 - x0
@@ -44,7 +48,9 @@ def advection_diffusion_residual_reference(x: torch.Tensor, u: Scalar,
     dw = (x0[..., 1:-1, 2:] - x0[..., 1:-1, :-2]) * 0.5
     lap = (x0[..., 2:, 1:-1] + x0[..., :-2, 1:-1] + x0[..., 1:-1, 2:]
            + x0[..., 1:-1, :-2] - 4.0 * c)
-    r = dt[..., 1:-1, 1:-1] + u * dw + v * dh - kappa * lap
+    f32 = torch.float32
+    r = (dt[..., 1:-1, 1:-1].to(f32) + u * dw.to(f32) + v * dh.to(f32)
+         - kappa * lap.to(f32))
     return torch.mean(r * r)
 
 
@@ -63,8 +69,9 @@ def advection_diffusion_loss(x: torch.Tensor, u: Scalar, v: Scalar,
         raise ValueError(f"expected (B, T, C, H, W), got {tuple(x.shape)}")
     if x.shape[1] < 2:
         raise ValueError("need at least 2 frames for a temporal difference")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the advection-diffusion prior takes fp32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the advection-diffusion prior takes fp32 or bf16, "
+                        f"got {x.dtype}")
     if x.device.type == "cpu":
         return _frames_reference(x, u, v, kappa)
     u, v, kappa = (torch.as_tensor(s, dtype=torch.float32, device=x.device)

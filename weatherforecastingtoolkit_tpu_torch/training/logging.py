@@ -1,10 +1,11 @@
-"""Experiment logging: JSONL scalars and histograms (+ optional wandb), a
-copy of weatherforecastingtoolkit_tpu/training/logging.py, which imports no
-JAX.
+"""Experiment logging: JSONL scalars, histograms and VIL image panels (+
+optional wandb), a copy of weatherforecastingtoolkit_tpu/training/
+logging.py, which imports no JAX.
 
 The primary backend is a local JSONL file per run; W&B attaches iff `wandb`
-is importable and WANDB_API_KEY is set in the environment. The VIL image
-panels (``log_images``) wait for the metrics slice.
+is importable and WANDB_API_KEY is set in the environment. ``log_images``
+imports matplotlib when it is called, as the JAX module does: where
+matplotlib is absent it raises ImportError.
 """
 
 from __future__ import annotations
@@ -80,11 +81,52 @@ class RunLogger:
 
     def log_images(self, predicted, target, label: str, step: int,
                    batch_idxs: int = 4) -> None:
-        """3xT VIL panels need matplotlib and the VIL colormap, which the
-        metrics slice of the port brings; until then this raises."""
-        raise NotImplementedError(
-            "RunLogger.log_images waits for the port's metrics slice "
-            "(matplotlib panels with the VIL colormap)")
+        """3xT panels: original / reconstruction / abs diff with the VIL
+        colormap (reference pipeline/helpers.py:155-225). predicted/target:
+        (B, T, H, W) or (B, T, 1, H, W) in [0, 1]."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        from ..data.colormap import vil_cmap
+
+        predicted = np.asarray(predicted)
+        target = np.asarray(target)
+        if predicted.ndim == 5:
+            predicted = predicted[:, :, 0]
+        if target.ndim == 5:
+            target = target[:, :, 0]
+
+        in_range = np.mean((target >= 0) & (target <= 1))
+        if in_range < 0.9:
+            print(f"[logging] warning: target data not in [0,1]: {in_range:.2%}")
+
+        tgt = (np.clip(target, 0, 1) * 255).astype(np.uint8)
+        prd = (np.clip(predicted, 0, 1) * 255).astype(np.uint8)
+        diff = np.abs(tgt.astype(float) - prd.astype(float)).clip(0, 255).astype(np.uint8)
+        b_total, t_total = tgt.shape[:2]
+        cmap, norm, _, _ = vil_cmap()
+
+        for b in range(min(batch_idxs, b_total)):
+            fig, axes = plt.subplots(3, t_total, figsize=(2 * t_total, 6),
+                                     squeeze=False)
+            for t in range(t_total):
+                for row, (img, kw, title) in enumerate((
+                        (tgt[b, t], dict(cmap=cmap, norm=norm), "orig"),
+                        (prd[b, t], dict(cmap=cmap, norm=norm), "recon"),
+                        (diff[b, t], dict(cmap="Reds", vmin=0, vmax=255), "absdiff"))):
+                    ax = axes[row, t]
+                    ax.imshow(img, **kw)
+                    ax.set_title(f"{title} t={t}", fontsize=6)
+                    ax.axis("off")
+            fig.tight_layout()
+            safe = label.replace("/", "_").replace(" ", "_")
+            path = os.path.join(self.run_dir, "media",
+                                f"{safe}_step{step}_b{b}.png")
+            fig.savefig(path, dpi=72)
+            if self._wandb is not None:
+                self._wandb.log({label: self._wandb.Image(fig)}, step=step)
+            plt.close(fig)
 
     def close(self) -> None:
         self._jsonl.close()

@@ -17,9 +17,10 @@ How the port's objects stand for the JAX ones:
   * aux scalars stay on the device and are read at the logging cadence
     only, so the step itself makes no host sync.
 
-Not here yet: ``mesh`` (data parallelism) and ``trainer.fsdp`` wait for the
-distributed slice and raise; ``validate``'s metrics (``task.eval_fn``) wait
-for the metrics slice and raise.
+``validate`` averages the loss and, for a task with an ``eval_fn``,
+``metrics.calc_metrics`` over the validation batches, as JAX's does. Not
+here yet: ``mesh`` (data parallelism) and ``trainer.fsdp`` wait for the
+distributed slice and raise.
 """
 
 from __future__ import annotations
@@ -394,27 +395,40 @@ class Trainer:
     def validate(self, state: TrainState, val_loader, step: int,
                  tag: str = "val", max_batches: Optional[int] = None,
                  log_images: bool = False) -> Dict[str, float]:
-        """Mean loss over the validation batches."""
+        """Mean loss over the validation batches and, for a task with an
+        ``eval_fn``, the mean of ``calc_metrics`` over them; with
+        ``log_images`` the first batch's panels (which need matplotlib)."""
         from ..data.prefetch import device_prefetch
+        from ..metrics import calc_metrics
 
-        if self.task.eval_fn is not None:
-            raise NotImplementedError(
-                "Trainer.validate with task.eval_fn needs metrics.calc_metrics,"
-                " which waits for the port's metrics slice; a task without "
-                "eval_fn validates on the loss alone")
         losses = []
+        metric_sums: Dict[str, float] = {}
+        n_metric = 0
         limit = max_batches or self.cfg.trainer.get("limit_val_batches", None)
         if limit is not None:
             # fractions (<1.0) scale the loader length; ints are batch counts
             limit = int(limit) if limit >= 1 else max(1, int(limit * len(val_loader)))
-        with torch.no_grad():
-            for i, batch in enumerate(device_prefetch(val_loader,
-                                                      device=self.device)):
-                if limit is not None and i >= limit:
-                    break
+        for i, batch in enumerate(device_prefetch(val_loader,
+                                                  device=self.device)):
+            if limit is not None and i >= limit:
+                break
+            with torch.no_grad():
                 loss, _aux = self.task.loss_fn(state.params, batch, state.rng, 0)
-                losses.append(float(loss))
+            losses.append(float(loss))
+            if self.task.eval_fn is not None:
+                with torch.no_grad():
+                    pred, target = self.task.eval_fn(state.params, batch,
+                                                     state.rng)
+                for k, v in calc_metrics(pred, target).items():
+                    metric_sums[k] = metric_sums.get(k, 0.0) + v
+                n_metric += 1
+                if log_images and i == 0:
+                    self.logger.log_images(pred.float().cpu().numpy(),
+                                           target.float().cpu().numpy(),
+                                           f"{tag}_panels", step)
         out = {"loss": float(np.mean(losses)) if losses else float("nan")}
+        if n_metric:
+            out.update({k: v / n_metric for k, v in metric_sums.items()})
         self.logger.log_scalars(out, step, prefix=tag)
         return out
 
