@@ -7,7 +7,9 @@ NVIDIA GPU and check it.
 Phases (any failure exits non-zero; no phase's failure is caught):
   1. the card (nvidia-smi's name and power limit line, printed again before
      the {"kernels": ...} line), torch/CUDA versions, and the nvcc builds of
-     both kernels from csrc/ (in parallel, timed);
+     the three kernel sources from csrc/ (in parallel, timed; ptxas's
+     registers, spills and shared memory), and the count of GMMA (wgmma)
+     instructions in the int8 conv library's SASS, which must be above 0;
   2. the GroupNorm kernel against its plain PyTorch version at every
      GroupNorm shape class of the serving paths, small N and N=1, NCHW and
      channels_last, fp32 and bf16, fp32 and bf16 scale/bias, SiLU on/off,
@@ -53,9 +55,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      float64 conv of the same codes; the same bits, twice) at every int8
      conv call shape of the two int8 serving calls (at N=4, and at the
      serving N while timing) and at the edges (N=1, Cin=1, Cout=1, 13x17,
-     stride 2 with (0, 1) padding, Cin not a multiple of 16), fp32 and bf16
-     out; per call shape the kernel's time in a CUDA graph, its plain time,
-     its bound and, as context only, the bf16 cuDNN conv of that shape;
+     stride 2 with (0, 1) padding, Cin not a multiple of 16, K not a
+     multiple of 128 bytes, Cout not a multiple of the tile, an M tail of
+     one row), fp32 and bf16 out, with and without bias; CUDA graphs of the
+     conv (both designs) replayed on three streams beside eager calls, the
+     eager calls' bits; per call shape the kernel's time in a CUDA graph,
+     its plain time, its bound and, as context only, the bf16 cuDNN conv of
+     that shape;
  10. quantized serving at full width: the reference VAE calibrated in fp32
      on the B=64 serving batch (bench.py's recipe), the int8_static bf16
      reference call at B=64 (median ms, frames/s, SSIM vs fp32, exactly
@@ -139,12 +145,19 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM data sheet, dense int8
 INT8_MIXED_SPEC = (("encoder/mid_block*", "int8_static"), ("*", "native"))
 # (N, H, W, Cin, Cout, k, stride, (top, bottom, left, right)): N=1, Cin=1,
 # Cout=1, an odd 13x17 frame, stride 2 with the VAE's (0, 1) padding, Cin
-# not a multiple of 16, the widest conv
+# not a multiple of 16, the widest conv; K not a multiple of 128 bytes
+# (48 channels x 9 taps, the gather), Cout not a multiple of the tile (200
+# over two 128-wide tiles, im2col in 64-byte stages), an M tail of one row
+# (3x43 = 129 output pixels)
 INT8_EDGE_CASES = [(1, 13, 17, 1, 64, 3, 1, (1, 1, 1, 1)),
                    (4, 13, 17, 64, 1, 3, 1, (1, 1, 1, 1)),
                    (4, 13, 17, 64, 128, 3, 2, (0, 1, 0, 1)),
                    (3, 9, 7, 48, 24, 1, 1, (0, 0, 0, 0)),
-                   (1, 16, 16, 512, 512, 3, 1, (1, 1, 1, 1))]
+                   (1, 16, 16, 512, 512, 3, 1, (1, 1, 1, 1)),
+                   (2, 9, 11, 48, 40, 3, 1, (1, 1, 1, 1)),
+                   (2, 9, 11, 192, 200, 3, 1, (1, 1, 1, 1)),
+                   (1, 3, 43, 64, 64, 3, 1, (1, 1, 1, 1)),
+                   (1, 3, 43, 16, 64, 3, 1, (1, 1, 1, 1))]
 ENSEMBLE_BATCH, ENSEMBLE_MEMBERS, EVAL_BATCH = 8, 8, 16
 NOISE_STDS = (0.0, 0.05, 0.1)
 EF_CONFIG = os.path.join(REPO, "experiments", "earthformer", "config.yaml")
@@ -159,6 +172,16 @@ STENCIL_CLASSES = [(2, 12, 1, 128, 128), (32, 12, 1, 128, 128),
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+def sass_count(library, opcode):
+    """Lines of cuobjdump -sass of `library` that hold `opcode`."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                           "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def within_tolerance(got, want):
@@ -897,6 +920,72 @@ def int8_bits(n, h, w, cin, cout, k, stride, pad, seed):
                                      f"{dtype} scales {tuple(s.shape)}")
 
 
+def int8_streams_check(cases, rounds=8):
+    """CUDA graphs of int8 convs replayed on three streams at once while
+    eager calls of the same convs run on a fourth, for each case (N, H, W,
+    Cin, Cout, k, stride, pad). Each graph reads its own buffer, refilled
+    with another of `rounds` inputs before each replay; every result must
+    have the bits of the eager call on its input. All the work is queued
+    behind a long sleep kernel, so that the streams' launches run at the
+    same time. Returns the number of results compared."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    compared = 0
+    for c, (n, h, w, cin, cout, k, s, pad) in enumerate(cases):
+        xq, wq, scale, bias = int8_codes(n, h, w, cin, cout, k, 3100 + c)
+        g = torch.Generator(device="cuda").manual_seed(3200 + c)
+        inputs = [torch.randint(-127, 128, xq.shape, generator=g,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(rounds)]
+        for x in inputs:
+            x[..., cin:] = 0
+
+        def conv(x):
+            return ic.int8_conv2d_nhwc_cuda(x, wq, scale, bias, (s, s), pad,
+                                            torch.bfloat16)
+
+        want = [conv(x) for x in inputs]
+        eager = torch.cuda.Stream()
+        streams = [torch.cuda.Stream() for _ in range(3)]
+        bufs = {st: torch.empty_like(xq) for st in streams}
+        for st in [eager] + streams:
+            st.wait_stream(torch.cuda.current_stream())
+        graphs, outs = [], []
+        for st in streams:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outs.append(conv(bufs[st]))
+            graphs.append(graph)
+        torch.cuda.synchronize()
+        gate = torch.cuda.Event()
+        torch.cuda._sleep(100_000_000)       # tens of ms: the host queues all
+        gate.record()
+        for st in [eager] + streams:
+            st.wait_event(gate)
+        got = []
+        for r in range(rounds):
+            for j, (graph, out, st) in enumerate(zip(graphs, outs, streams)):
+                i = (r + j + 1) % rounds
+                with torch.cuda.stream(st):
+                    bufs[st].copy_(inputs[i])
+                    graph.replay()
+                    got.append((i, out.clone()))
+            with torch.cuda.stream(eager):
+                got.append((r, conv(inputs[r])))
+        torch.cuda.synchronize()
+        bad = [i for i, v in got if not torch.equal(v, want[i])]
+        if bad:
+            raise AssertionError(f"int8 conv on concurrent streams, N={n} "
+                                 f"{h}x{w} {cin}->{cout}: {len(bad)} of "
+                                 f"{len(got)} results differ from the eager "
+                                 f"calls'")
+        compared += len(got)
+        del xq, wq, inputs, want, bufs, graphs, outs, got
+    return compared
+
+
 def int8_kernel_phase(ref_calls, fast_calls):
     """Phase 9: the int8 kernels' bits at every call shape (at N=4) and at
     the edges."""
@@ -910,6 +999,12 @@ def int8_kernel_phase(ref_calls, fast_calls):
     log(f"  {len(shapes)} call shapes of the two int8 serving calls at N=4 "
         f"and {len(INT8_EDGE_CASES)} edge cases: the same bits as the plain "
         f"version, twice")
+    # both designs (im2col with resident weights, 64-byte stages; the gather
+    # with streamed weights) in CUDA graphs on three streams beside eager calls
+    streams = [(16, 32, 32, 64, 64, 3, 1, (1, 1, 1, 1)),
+               (16, 16, 16, 48, 256, 3, 2, (0, 1, 0, 1))]
+    log(f"  CUDA graphs of the conv on three streams beside eager calls: "
+        f"{int8_streams_check(streams)} results, the eager calls' bits")
 
 
 def time_int8_calls(calls, title):
@@ -1348,8 +1443,13 @@ def main():
         f"int8_conv.cu {int8_conv.build_seconds:.2f} s)")
     for kernel in kernels:
         for line in kernel.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {kernel.SOURCE.name}: {line.strip()}")
+    gmma = sass_count(int8_conv.build()._name, "GMMA")
+    log(f"int8_conv.cu: {gmma} GMMA (wgmma) instructions in cuobjdump -sass "
+        f"of the built library")
+    if not gmma > 0:
+        raise AssertionError("no wgmma instruction in the int8 conv library")
 
     # -------------------------------------- 2. kernel against plain version
     log("phase 2: kernel vs plain (fp32 atol 1e-4; bf16 1 ulp + 1e-4), the "

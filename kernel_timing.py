@@ -1,14 +1,17 @@
 #!/usr/bin/env python
-"""Time the port's two kernels on one NVIDIA GPU, call shape by call shape.
+"""Time the port's kernels on one NVIDIA GPU, call shape by call shape.
 
-    python3 kernel_timing.py [TWO_PASS_SOURCE]
+    python3 kernel_timing.py [TWO_PASS_SOURCE] [--int8-parent INT8_SOURCE]
+                             [--only-int8]
 
 needs one NVIDIA GPU and nvcc. It records the GroupNorm call shapes of one
-bf16 reference-shape pipeline call (B=64) and one fast-VAE call (B=256), as
-chip_smoke.py does, and takes its configurations, inputs, bound and CUDA
-graph timing from there. Every time is device time inside a CUDA graph.
+bf16 reference-shape pipeline call (B=64) and one fast-VAE call (B=256), and
+the int8 conv call shapes of the int8_static reference call (B=64) and the
+fast VAE under INT8_MIXED_SPEC (B=256), as chip_smoke.py does, and takes its
+configurations, inputs, bounds and CUDA graph timing from there. Every time
+is device time inside a CUDA graph.
 
-- For each call shape, the GroupNorm kernel at every plan (channel run of
+- For each GroupNorm call shape, the kernel at every plan (channel run of
   32-256 bytes, clusters of 1-16 blocks holding 8-128 KB each) beside the
   plan `_plan` picks.
 - The stencil kernel at the training shapes (B=2 and B=32) with bands of 1
@@ -22,11 +25,21 @@ graph timing from there. Every time is device time inside a CUDA graph.
   alone, against the kernel of this checkout, in turns (two-pass, this
   checkout, this checkout, two-pass), so both are measured on one card in
   one process.
+- For each int8 conv call shape, the conv kernel at every plan of
+  `int8_plans` (the im2col and the gather design, tile widths, ring depths,
+  the weights streamed or resident) beside the plan `plan` picks.
+- With --int8-parent, the int8_conv.cu of an earlier commit whose
+  int8_conv2d_forward takes a tile id (0, 1, 2) as its last int (commit
+  884415f; unpack it with `git archive`), built beside this checkout's and
+  timed against it at every int8 call shape in turns (parent, this
+  checkout, this checkout, parent); both must give the same bits.
+- --only-int8 skips the GroupNorm and stencil measurements.
 
 It prints one line per measurement and a JSON summary as its last line.
 Without a GPU it exits 2.
 """
 
+import argparse
 import collections
 import ctypes
 import json
@@ -37,11 +50,13 @@ import tempfile
 
 import numpy as np
 
-from chip_smoke import (BATCH, FAST_BATCH, FAST_VAE, HW, REFERENCE_VAE,
-                        STENCIL_CLASSES, T_IN, T_OUT, codec, gn_bound,
-                        gn_inputs, graph_ms, record_gn_calls)
+from chip_smoke import (BATCH, FAST_BATCH, FAST_VAE, HW, INT8_MIXED_SPEC,
+                        REFERENCE_VAE, STENCIL_CLASSES, T_IN, T_OUT, codec,
+                        gn_bound, gn_inputs, graph_ms, int8_bound, int8_codes,
+                        record_gn_calls, record_int8_calls)
 
 REPS = 20
+INT8_REPS = 5
 # Entry points added beside the two-pass source: its own launch sequence
 # (channels_last, 16-byte vectors) with each of the three launches optional.
 PHASES_CU = r"""
@@ -297,6 +312,171 @@ def stencil_sweep():
     return out
 
 
+def int8_call_shapes():
+    """int8 conv call shapes of one int8_static reference call (B=64) and
+    one fast-VAE INT8_MIXED_SPEC call (B=256), bf16, largest first. The
+    scales stay at their defaults: the shapes do not depend on them."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
+    from weatherforecastingtoolkit_tpu_torch.models.rollout import (
+        make_forecast_pipeline)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+
+    out = {}
+    for name, cfg, batch, mode in (
+            ("int8_static reference", REFERENCE_VAE, BATCH, "int8_static"),
+            ("fast int8-mixed", FAST_VAE, FAST_BATCH, INT8_MIXED_SPEC)):
+        vae = AutoencoderKL(**cfg, conv_mode=mode, seed=0).to(torch.bfloat16)
+        pipe = make_forecast_pipeline(**codec(vae, torch.bfloat16))
+        frames = torch.zeros((batch, T_IN, 1, HW, HW), dtype=torch.uint8,
+                             device="cuda")
+        with torch.inference_mode():
+            calls = record_int8_calls(vae, lambda: pipe(
+                DLinear(T_IN, T_OUT, kernel_size=25), frames))
+        out[name] = sorted(calls.items(), key=lambda kv: -np.prod(kv[0][:5]))
+        del vae, pipe, frames
+        torch.cuda.empty_cache()
+    return out
+
+
+def build_int8_parent(source, out_dir):
+    """nvcc the parent's int8_conv.cu into a library of its own."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    so = os.path.join(out_dir, "int8_conv_parent.so")
+    subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", so,
+                    os.path.abspath(source)], check=True)
+    lib = ctypes.CDLL(so)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.int8_conv2d_forward.argtypes = [p, p, p, p, p, i] + [i] * 14 + [p]
+    lib.int8_conv2d_forward.restype = i
+    return lib
+
+
+def int8_inputs(key, seed):
+    """Codes, scale and bias of one call shape, and the wrapper's arguments."""
+    n, h, w, cin, cout, k, s, pad, dtype = key
+    xq, wq, scale, bias = int8_codes(n, h, w, cin, cout, k, seed)
+    return xq, wq, scale, bias, (xq, wq, scale, bias, (s, s), pad, dtype)
+
+
+def int8_parent_rows(lib, calls):
+    """Per call shape: the parent's kernel and this checkout's, in graphs,
+    in turns; the same bits or fail."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    tot = collections.defaultdict(float)
+    for i, (key, count) in enumerate(calls):
+        n, h, w, cin, cout, k, s, pad, dtype = key
+        xq, wq, scale, bias, args = int8_inputs(key, 3000 + i)
+        ho, wo = ic.out_size(h, w, k, k, (s, s), pad)
+        y = torch.empty((n, ho, wo, cout), dtype=dtype, device="cuda")
+        tile = 0 if cout >= 128 else 1 if cout > 16 else 2
+
+        def parent():
+            rc = lib.int8_conv2d_forward(
+                xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
+                n, h, w, xq.shape[-1], cout, k, k, s, s, pad[0], pad[2], ho,
+                wo, tile, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"parent int8_conv2d_forward: CUDA {rc}")
+
+        def new():
+            return ic.int8_conv2d_nhwc_cuda(*args)
+
+        parent()
+        if not torch.equal(y, new()):
+            raise AssertionError(f"parent and this checkout differ at {key}")
+        t_parent = [graph_ms(parent, INT8_REPS)]
+        t_new = [graph_ms(new, INT8_REPS), graph_ms(new, INT8_REPS)]
+        t_parent.append(graph_ms(parent, INT8_REPS))
+        row = dict(parent=float(np.mean(t_parent)), new=float(np.mean(t_new)),
+                   bound=int8_bound(n, h, w, cin, cout, k, s, pad, 2)[0])
+        for name, v in row.items():
+            tot[name] += count * v
+        print(f"  {count:2d} x N={n} {h}x{w} {cin}->{cout} k{k} s{s}: parent "
+              f"{row['parent']:.4f} ({t_parent[0]:.4f}, {t_parent[1]:.4f}); "
+              f"this checkout {row['new']:.4f} ({t_new[0]:.4f}, "
+              f"{t_new[1]:.4f}); bound {row['bound']:.4f} (parent "
+              f"{row['bound'] / row['parent']:.0%}, this checkout "
+              f"{row['bound'] / row['new']:.0%})", flush=True)
+        del xq, wq, y, args
+        torch.cuda.empty_cache()
+    return dict(tot)
+
+
+def int8_plans(cout, kh, kw, cp, out_bytes, im2col):
+    """Every plan the sweep times for a conv: `plan`'s own first; the
+    im2col design (where TMA's im2col mode takes the conv and Cp is a
+    multiple of 64) and the gather design, at the widest tile Cout fills
+    (the gather's at most 128) and 128 beside 256, with the weights
+    streamed (rings of 3, 4 and the most stages that fit) and, where one
+    tile spans Cout, resident (the most that fit)."""
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    k = kh * kw * cp
+    plans = [ic.plan(cout, kh, kw, cp, out_bytes, im2col)]
+    designs = ([ic.IM2COL] if im2col and cp % 64 == 0 else []) + [ic.GATHER]
+    for design in designs:
+        bk = ic.stage_k(design, cp)
+        most = 8 * 128 // bk
+        widths = {ic.ws_width(cout), min(ic.ws_width(cout), 128)}
+        for bn in sorted(widths, reverse=True):
+            if design == ic.GATHER and bn > ic.GATHER_MAX_BN:
+                continue
+            top = ic.plan_stages(bn, out_bytes, bk=bk, most=most)
+            plans += [ic.Plan(design, bn, st, 0)
+                      for st in sorted({3, 4, top}) if st <= top]
+            top = ic.plan_stages(bn, out_bytes, k, 1, bk, most)
+            if cout <= bn and top:
+                plans.append(ic.Plan(design, bn, top, 1))
+    return list(dict.fromkeys(plans))
+
+
+def int8_sweep_rows(calls):
+    """Per call shape: this checkout's conv kernel at every plan of
+    `int8_plans` (swapped in for the wrapper's `plan`), beside `plan`'s."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    plan = ic.plan
+    tot = collections.defaultdict(float)
+    for i, (key, count) in enumerate(calls):
+        n, h, w, cin, cout, k, s, pad, dtype = key
+        xq, wq, scale, bias, args = int8_inputs(key, 4000 + i)
+        cands = int8_plans(cout, k, k, xq.shape[-1], 2,
+                           ic.im2col_fits(h, w, k, k, (s, s), pad))
+        timed = {}
+        try:
+            for cand in cands:
+                ic.plan = lambda *a, c=cand: c
+                timed[cand] = graph_ms(
+                    lambda: ic.int8_conv2d_nhwc_cuda(*args), INT8_REPS)
+        finally:
+            ic.plan = plan
+        chosen = cands[0]
+        best = min(timed, key=timed.get)
+        tot["chosen"] += count * timed[chosen]
+        tot["best"] += count * timed[best]
+        tot["bound"] += count * int8_bound(n, h, w, cin, cout, k, s, pad, 2)[0]
+        print(f"  {count:2d} x N={n} {h}x{w} {cin}->{cout} k{k} s{s}: plan "
+              f"{tuple(chosen)} {timed[chosen]:.4f} ms; best {tuple(best)} "
+              f"{timed[best]:.4f} ms; all (design, bn, stages): " + ", ".join(
+                  f"{tuple(c)}:{t:.4f}" for c, t in timed.items()),
+              flush=True)
+        del xq, wq, args
+        torch.cuda.empty_cache()
+    return dict(tot)
+
+
 def main():
     import torch
 
@@ -304,37 +484,63 @@ def main():
         print("kernel_timing: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
-    two_pass_source = sys.argv[1] if len(sys.argv) > 1 else None
+    parser = argparse.ArgumentParser()
+    parser.add_argument("two_pass_source", nargs="?")
+    parser.add_argument("--int8-parent", metavar="INT8_SOURCE")
+    parser.add_argument("--only-int8", action="store_true")
+    opts = parser.parse_args()
 
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    sms, smem, max_cluster = groupnorm._device_limits(groupnorm.build(), 0)
-    cs.build()
     summary = {}
-    calls = {"reference": record_calls(REFERENCE_VAE, BATCH),
-             "fast": record_calls(FAST_VAE, FAST_BATCH)}
-    if two_pass_source:
-        lib = build_two_pass(two_pass_source, tempfile.mkdtemp())
+    if not opts.only_int8:
+        sms, smem, max_cluster = groupnorm._device_limits(groupnorm.build(), 0)
+        cs.build()
+        calls = {"reference": record_calls(REFERENCE_VAE, BATCH),
+                 "fast": record_calls(FAST_VAE, FAST_BATCH)}
+        if opts.two_pass_source:
+            lib = build_two_pass(opts.two_pass_source, tempfile.mkdtemp())
+            for name, shapes in calls.items():
+                print(f"{name} bf16: per call shape, graph ms", flush=True)
+                tot = two_pass_rows(lib, shapes, sms)
+                print(f"  per call ({sum(n for _, n in shapes)} GroupNorms): "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()),
+                      flush=True)
+                summary[f"{name}_two_pass"] = tot
         for name, shapes in calls.items():
-            print(f"{name} bf16: per call shape, graph ms", flush=True)
-            tot = two_pass_rows(lib, shapes, sms)
-            print(f"  per call ({sum(n for _, n in shapes)} GroupNorms): "
+            print(f"{name} bf16: plans per call shape, graph ms (run B / "
+                  f"cluster: ms)", flush=True)
+            tot = sweep_rows(shapes, smem, max_cluster)
+            print(f"  per call: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in tot.items()), flush=True)
+            summary[f"{name}_sweep"] = tot
+        summary["stencil_us"] = stencil_sweep()
+
+    ic.build()
+    int8_calls = int8_call_shapes()
+    if opts.int8_parent:
+        lib = build_int8_parent(opts.int8_parent, tempfile.mkdtemp())
+        for name, shapes in int8_calls.items():
+            print(f"{name} bf16: int8 conv per call shape, parent vs this "
+                  f"checkout, graph ms", flush=True)
+            tot = int8_parent_rows(lib, shapes)
+            print(f"  per call ({sum(n for _, n in shapes)} int8 convs): "
                   + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()),
                   flush=True)
-            summary[f"{name}_two_pass"] = tot
-    for name, shapes in calls.items():
-        print(f"{name} bf16: plans per call shape, graph ms (run B / "
-              f"cluster: ms)", flush=True)
-        tot = sweep_rows(shapes, smem, max_cluster)
+            summary[f"{name}_int8_parent"] = tot
+    for name, shapes in int8_calls.items():
+        print(f"{name} bf16: int8 conv plans per call shape, graph ms",
+              flush=True)
+        tot = int8_sweep_rows(shapes)
         print(f"  per call: " + ", ".join(
             f"{k} {v:.3f}" for k, v in tot.items()), flush=True)
-        summary[f"{name}_sweep"] = tot
-    summary["stencil_us"] = stencil_sweep()
+        summary[f"{name}_int8_sweep"] = tot
     print(smi, flush=True)
     print(json.dumps({"kernel_timing_ms": summary,
                       "device": torch.cuda.get_device_name(0)}), flush=True)

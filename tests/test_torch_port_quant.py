@@ -365,9 +365,19 @@ def test_state_dict_loads_strictly_into_jax(mode):
 
 
 def test_tile_choice():
-    """The conv kernel's tile width (pure): the widest tile Cout fills."""
-    assert [ic._tile(c) for c in (1, 16, 17, 64, 127, 128, 512)] == [
-        2, 2, 1, 1, 1, 0, 0]
+    """The conv kernel's plan (pure): the widest tile Cout fills (128 at
+    most in the gather), im2col where TMA takes the geometry and Cp is a
+    multiple of 64, the weights resident under one tile of at most 64."""
+    assert [ic.plan(c, 3, 3, 64, 2).bn for c in (1, 16, 17, 64, 127, 128,
+                                                 512)] == [
+        8, 16, 16, 64, 64, 128, 256]
+    assert ic.plan(512, 3, 3, 512, 2) == ic.Plan(ic.IM2COL, 256, 3, 0)
+    assert ic.plan(128, 3, 3, 128, 2) == ic.Plan(ic.IM2COL, 128, 4, 0)
+    assert ic.plan(128, 1, 1, 256, 2) == ic.Plan(ic.IM2COL, 128, 3, 0)
+    assert ic.plan(512, 3, 3, 512, 2, im2col=False) == ic.Plan(
+        ic.GATHER, 128, 4, 0)
+    assert ic.plan(64, 3, 3, 16, 2) == ic.Plan(ic.GATHER, 64, 8, 1)
+    assert ic.plan(64, 3, 3, 64, 2) == ic.Plan(ic.IM2COL, 64, 16, 1)
     assert ic.padded_channels(1) == 16 and ic.padded_channels(64) == 64
 
 
@@ -398,7 +408,17 @@ CARD_CASES = [(1, 13, 17, 1, 64, 3, 1, (1, 1, 1, 1)),
               (2, 8, 8, 512, 512, 3, 1, (1, 1, 1, 1)),
               (2, 16, 16, 256, 128, 1, 1, (0, 0, 0, 0)),
               (4, 32, 32, 128, 16, 3, 1, (1, 1, 1, 1)),
-              (1, 9, 7, 48, 24, 3, 2, (1, 1, 1, 1))]
+              (1, 9, 7, 48, 24, 3, 2, (1, 1, 1, 1)),
+              # the im2col design: 64-byte stages (Cp 192) with a ragged
+              # Cout tile, stride 2 with the VAE's (0, 1) padding, a
+              # 256-wide tile (K >= 2048), four 128-wide tiles (K < 2048)
+              (2, 9, 11, 192, 200, 3, 1, (1, 1, 1, 1)),
+              (3, 16, 16, 64, 128, 3, 2, (0, 1, 0, 1)),
+              (2, 8, 8, 256, 512, 3, 1, (1, 1, 1, 1)),
+              (5, 8, 8, 64, 512, 3, 1, (1, 1, 1, 1)),
+              # the gather: K = 432 (not a multiple of 128), M = 129 (a tail
+              # of one row), Cout 24 over two 16-wide tiles
+              (1, 3, 43, 48, 24, 3, 1, (1, 1, 1, 1))]
 
 
 def _codes(case, device, seed):
@@ -432,6 +452,30 @@ def test_card_conv_kernel_equals_plain(cuda_device, case):
             want = ic.int8_conv2d_nhwc_plain(xq, wq, scale, b, strides, pad,
                                              out)
             assert torch.equal(got, want) and torch.equal(got, again), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CARD_CASES[i] for i in (0, 1, 7, 8, 9, 11)])
+def test_card_conv_every_plan_equals_plain(cuda_device, case):
+    """Every plan kernel_timing.py sweeps (both designs, tile widths, ring
+    depths, resident or streamed weights) gives the plain version's bits."""
+    import kernel_timing
+
+    n, h, w, cin, cout, k, s, pad = case
+    xq, wq, scale, bias = _codes(case, cuda_device, seed=cout)
+    fits = ic.im2col_fits(h, w, k, k, (s, s), pad)
+    plan = ic.plan
+    for out in (torch.float32, torch.bfloat16):
+        want = ic.int8_conv2d_nhwc_plain(xq, wq, scale, bias, (s, s), pad, out)
+        for cand in kernel_timing.int8_plans(cout, k, k, xq.shape[-1],
+                                             out.itemsize, fits):
+            ic.plan = lambda *a, c=cand: c
+            try:
+                got = ic.int8_conv2d_nhwc(xq, wq, scale, bias, (s, s), pad,
+                                          out)
+            finally:
+                ic.plan = plan
+            assert torch.equal(got, want), (case, cand, out)
 
 
 @pytest.mark.cuda

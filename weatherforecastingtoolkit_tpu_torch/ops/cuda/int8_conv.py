@@ -11,14 +11,16 @@ preferred_element_type=jnp.int32)`` followed by the fp32 epilogue
 bias) with acc the int32 sum of int8 codes over kh x kw x Cin, zero outside
 the image; ``quantize_nhwc`` computes q = clamp(rint(x / s), -127, 127) in one
 pass over x, with s per channel or one device scalar. Both kernels live in
-``csrc/int8_conv.cu``: the conv is an implicit GEMM on ``mma.sync`` s8 tensor
-cores (bound by its int8 operations at the VAE's wide convs, by bytes at
-Cout = 1), the quantize pass is bound by bytes.
+``csrc/int8_conv.cu``: the conv is an implicit GEMM, warp-specialised and
+persistent, on ``wgmma`` s8 tensor cores fed by TMA (weights) and cp.async
+gathers (input rows) through a ring of shared-memory stages; the source's
+header says what bounds it. The quantize pass is bound by bytes.
 
 Input channels are padded to a multiple of 16 with zero codes (exact): the
 quantize pass writes the padding into its output, and ``pad_channels`` pads
-the (small) weight codes. ``_tile`` picks the kernel's output-tile width
-from Cout; it is pure, so the CPU tests check it.
+the (small) weight codes, which then are the (Cout, K) matrix the kernel
+reads by TMA, K = kh * kw * Cp. ``plan`` picks the kernel's design, tile
+width and ring depth for a conv; it is pure, so the CPU tests check it.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. The plain conv is ``F.conv2d`` in float64 on the codes
@@ -32,7 +34,7 @@ of the source) and bound with ``ctypes``. ``conv_launches`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,12 +72,108 @@ def out_size(h: int, w: int, kh: int, kw: int, strides: Tuple[int, int],
             (w + l + r - kw) // strides[1] + 1)
 
 
-def _tile(cout: int) -> int:
-    """The conv kernel's tile (csrc/int8_conv.cu): 0, 128 output channels
-    wide, for Cout >= 128; 1, 64 wide, above 16; 2, 16 wide, up to 16."""
-    if cout >= 128:
-        return 0
-    return 1 if cout > 16 else 2
+class Plan(NamedTuple):
+    """How csrc/int8_conv.cu runs one conv. ``design`` 2 reads the input
+    rows by TMA in im2col mode, 1 gathers them with cp.async (two producer
+    warpgroups); ``bn`` output channels a tile; ``stages`` the depth of the
+    ring; ``resident`` 1 when the kernel holds all of the weights in shared
+    memory (one Cout tile) and streams only the input rows."""
+    design: int
+    bn: int
+    stages: int
+    resident: int
+
+
+GATHER, IM2COL = 1, 2
+WS_WIDTHS = (8, 16, 64, 128, 256)   # wgmma N of the tiles
+GATHER_MAX_BN = 128                 # the gather's sums: 128 registers a thread
+GATHER_MAX_TAPS = 64                # kh * kw of the gather's tap masks
+WS_BM = 128                         # output rows a tile
+WS_EPI_COLS = 32                    # columns a warp stages at a time
+SMEM_LIMIT = 232448                 # bytes of shared memory a block (H100)
+IM2COL_CORNER = (-128, 127)         # TMA im2col's corner range, 4-D tensor
+MIN_STAGES = 2
+
+
+def stage_k(design: int, cp: int) -> int:
+    """Bytes of K a stage holds: 128 (the 128-byte swizzle), or 64 (the
+    64-byte one) for the im2col design when Cp is not a multiple of 128."""
+    return 64 if design == IM2COL and cp % 128 else 128
+
+
+def ws_smem_bytes(bn: int, out_bytes: int, stages: int, k: int = 0,
+                  resident: int = 0, bk: int = 128) -> int:
+    """Shared memory the kernel asks for (``ws_smem_bytes`` in the source):
+    alignment slack, the ring of A stages (128 rows x bk bytes) and B stages
+    (bn x bk bytes), or all ceil(K / bk) B boxes when resident, 8 warps' 16
+    staged rows, the barriers."""
+    stride = min(bn, WS_EPI_COLS) * out_bytes + 16
+    b_boxes = -(-k // bk) if resident else stages
+    return (1024 + stages * WS_BM * bk + b_boxes * bn * bk
+            + 8 * 16 * stride + 16 * stages + 8)
+
+
+def ws_width(cout: int) -> int:
+    """The widest wgmma tile that Cout fills (8 for Cout <= 8)."""
+    for bn in reversed(WS_WIDTHS):
+        if cout >= bn:
+            return bn
+    return WS_WIDTHS[0]
+
+
+def plan_stages(bn: int, out_bytes: int, k: int = 0, resident: int = 0,
+                bk: int = 128, most: int = 8) -> int:
+    """The most stages (at most `most`) that fit the shared memory; 0 when
+    not even MIN_STAGES do."""
+    stages = most
+    while stages >= MIN_STAGES and ws_smem_bytes(
+            bn, out_bytes, stages, k, resident, bk) > SMEM_LIMIT:
+        stages -= 1
+    return stages if stages >= MIN_STAGES else 0
+
+
+def im2col_fits(h: int, w: int, kh: int, kw: int, strides: Tuple[int, int],
+                pad: Pad) -> bool:
+    """Whether TMA's im2col mode takes the conv: strides up to 8 and a
+    bounding box (the tap-(0, 0) input pixels of all output pixels) whose
+    corners lie within IM2COL_CORNER of the image's."""
+    ho, wo = out_size(h, w, kh, kw, strides, pad)
+    t, _, l, _ = pad
+    corners = (-l, -t, -l + (wo - 1) * strides[1] - (w - 1),
+               -t + (ho - 1) * strides[0] - (h - 1))
+    lo, hi = IM2COL_CORNER
+    return max(strides) <= 8 and all(lo <= c <= hi for c in corners)
+
+
+def plan(cout: int, kh: int, kw: int, cp: int, out_bytes: int,
+         im2col: bool = True) -> Plan:
+    """The design, tile width, ring depth and weight residency for a conv of
+    Cout output channels, a kh x kw kernel over Cp (padded) input channels,
+    writing out_bytes a value; `im2col` says whether TMA's im2col mode
+    takes its geometry (``im2col_fits``); raises where neither design takes
+    the conv (the gather past 64 taps). From kernel_timing.py's sweep on an
+    H100 (PERF.md): im2col wherever it fits and Cp is a multiple of 64; the
+    widest tile Cout fills (the gather's at most 128); the weights resident
+    where one tile of at most 64 spans Cout and the kernel is wider than
+    1x1, with the deepest ring that fits; else a ring of 3 stages for
+    256-wide tiles and 1x1 kernels and 4 for the rest (deeper rings were
+    slower)."""
+    k = kh * kw * cp
+    design = IM2COL if im2col and cp % 64 == 0 else GATHER
+    if design == GATHER and kh * kw > GATHER_MAX_TAPS:
+        raise ValueError(f"no int8 conv kernel for a {kh}x{kw} kernel over "
+                         f"{cp} channels outside TMA's im2col mode (the "
+                         f"gather takes at most {GATHER_MAX_TAPS} taps)")
+    bn = ws_width(cout)
+    if design == GATHER:
+        bn = min(bn, GATHER_MAX_BN)
+    bk = stage_k(design, cp)
+    most = 8 * 128 // bk
+    if cout <= bn <= 64 and kh * kw > 1 and plan_stages(bn, out_bytes, k, 1,
+                                                        bk) >= 4:
+        return Plan(design, bn, plan_stages(bn, out_bytes, k, 1, bk, most), 1)
+    ring = 3 if bn == 256 or kh * kw == 1 else 4
+    return Plan(design, bn, plan_stages(bn, out_bytes, bk=bk, most=ring), 0)
 
 
 # ------------------------------------------------------------ plain versions
@@ -115,7 +213,7 @@ def build() -> ctypes.CDLL:
         build_seconds, build_log = seconds, out
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.int8_conv2d_forward.argtypes = [p, p, p, p, p, i] + [i] * 14 + [p]
+    lib.int8_conv2d_forward.argtypes = [p, p, p, p, p, i] + [i] * 17 + [p]
     lib.int8_conv2d_forward.restype = i
     lib.int8_quantize_forward.argtypes = [p, i, p, i, p, ll, i, i, p]
     lib.int8_quantize_forward.restype = i
@@ -192,14 +290,18 @@ def int8_conv2d_nhwc_cuda(xq: torch.Tensor, wq: torch.Tensor,
     ho, wo = out_size(h, w, kh, kw, strides, pad)
     if ho < 1 or wo < 1:
         raise ValueError(f"no output for {h}x{w} with a {kh}x{kw} kernel")
+    if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError("xq and wq must be 16-byte aligned")
     lib = build()
     y = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=xq.device)
+    how = plan(cout, kh, kw, cp, y.element_size(),
+               im2col_fits(h, w, kh, kw, strides, pad))
     with torch.cuda.device(xq.device):
         rc = lib.int8_conv2d_forward(
             xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             int(out_dtype == torch.bfloat16), n, h, w, cp, cout, kh, kw,
-            strides[0], strides[1], pad[0], pad[2], ho, wo, _tile(cout),
+            strides[0], strides[1], pad[0], pad[2], ho, wo, *how,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_conv2d_forward failed with CUDA error {rc}")

@@ -13,9 +13,11 @@ the first match wins and unmatched convs run ``native``.
 
 The functional entry points keep the JAX layouts: x (N, H, W, Cin), kernel
 (kh, kw, Cin, Cout). Every int8 conv is the same three steps as in JAX:
-weights quantized per output channel (max|w| / 127) with plain torch ops on
-every call, activations quantized to int8 codes, an int8 x int8 -> int32
-conv, and the fp32 epilogue ``acc * scale + bias`` rounded to x's dtype.
+weights quantized per output channel (max|w| / 127) with plain torch ops
+(on every call of the functional convs, once per weight for a ``QConv``,
+as XLA folds the weight side of the JAX package's convs into constants),
+activations quantized to int8 codes, an int8 x int8 -> int32 conv, and the
+fp32 epilogue ``acc * scale + bias`` rounded to x's dtype.
 ``ops/cuda/int8_conv.py`` holds the last two steps: on a CUDA tensor its
 hand-written kernels run them (or raise), on a CPU tensor their plain
 versions. ``calibrate`` and ``fake_quant`` are plain PyTorch everywhere.
@@ -119,27 +121,36 @@ def _act_scale(act_absmax: torch.Tensor) -> torch.Tensor:
     return _div127(act_absmax.float().clamp_min(1e-12))
 
 
-def _conv_int8(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
-               strides: Tuple[int, int], pad: Tuple[int, int, int, int],
-               act_absmax: Optional[torch.Tensor]) -> torch.Tensor:
-    """The int8 conv on x (N, H, W, Cin) and w (Cout, kh, kw, Cin): static
-    (per-input-channel scales from act_absmax) or dynamic (act_absmax None:
-    one per-tensor scale from max|x|, computed on x's device)."""
-    if act_absmax is None:
+def _int8_operands(w: torch.Tensor, bias: Optional[torch.Tensor],
+                   act_absmax: Optional[torch.Tensor], device: torch.device
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The weight side of an int8 conv on w (Cout, kh, kw, Cin): the codes
+    with Cin padded to 16 (the (Cout, K) matrix the kernel reads), s_w or,
+    with act_absmax, the folded per-output-channel scale, the fp32 bias and
+    the per-input-channel activation scale s_a (None when dynamic)."""
+    s_a = None if act_absmax is None else _act_scale(act_absmax.to(device))
+    wq, scale = _weight_codes(w, s_a)
+    b = None if bias is None else bias.float()
+    return _kernels.pad_channels(wq).contiguous(), scale, b, s_a
+
+
+def _conv_int8(x: torch.Tensor, operands, strides: Tuple[int, int],
+               pad: Tuple[int, int, int, int]) -> torch.Tensor:
+    """The int8 conv on x (N, H, W, Cin) with the weight side of
+    ``_int8_operands``: static (per-input-channel scales s_a) or dynamic (s_a
+    None: one per-tensor scale from max|x|, computed on x's device)."""
+    wq, scale, b, s_a = operands
+    if s_a is None:
         lo, hi = torch.aminmax(x)
         x_absmax = torch.maximum(-lo, hi).float()
         s_x = torch.where(x_absmax > 0, _div127(x_absmax),
                           torch.ones_like(x_absmax))
-        wq, s_w = _weight_codes(w)
-        scale = s_x * s_w
+        scale = s_x * scale
         xq = _kernels.quantize_nhwc(x, s_x)
     else:
-        s_a = _act_scale(act_absmax.to(x.device))
-        wq, scale = _weight_codes(w, s_a)
         xq = _kernels.quantize_nhwc(x, s_a)
-    b = None if bias is None else bias.float()
-    return _kernels.int8_conv2d_nhwc(xq, _kernels.pad_channels(wq), scale, b,
-                                     strides, pad, x.dtype)
+    return _kernels.int8_conv2d_nhwc(xq, wq, scale, b, strides, pad, x.dtype)
 
 
 def _hwio(kernel: torch.Tensor) -> torch.Tensor:
@@ -158,7 +169,8 @@ def int8_conv(x: torch.Tensor, kernel: torch.Tensor, bias, strides,
     Returns x.dtype. An all-zero tensor maps to scale 1 (outputs 0)."""
     st = _strides(strides)
     pad = as_padding(padding, tuple(kernel.shape[:2]), st, tuple(x.shape[1:3]))
-    return _conv_int8(x, _hwio(kernel), bias, st, pad, None)
+    return _conv_int8(x, _int8_operands(_hwio(kernel), bias, None, x.device),
+                      st, pad)
 
 
 def int8_conv_static(x: torch.Tensor, kernel: torch.Tensor, bias, strides,
@@ -169,7 +181,8 @@ def int8_conv_static(x: torch.Tensor, kernel: torch.Tensor, bias, strides,
     quantized per output channel; activations are clipped to [-127, 127]."""
     st = _strides(strides)
     pad = as_padding(padding, tuple(kernel.shape[:2]), st, tuple(x.shape[1:3]))
-    return _conv_int8(x, _hwio(kernel), bias, st, pad, act_absmax)
+    return _conv_int8(x, _int8_operands(_hwio(kernel), bias, act_absmax,
+                                        x.device), st, pad)
 
 
 def _ste_round(v: torch.Tensor) -> torch.Tensor:
@@ -262,6 +275,18 @@ class QConv(nn.Module):
     scales hold them in ``act_absmax`` (Cin,) fp32, a non-persistent buffer
     (ones until loaded, as JAX's default), so ``state_dict`` is the same in
     every mode; dtype casts of the module leave it fp32.
+
+    In ``int8`` and ``int8_static`` mode the weight side of the conv (the
+    padded codes, s_w or the folded scale, the fp32 bias, the activation
+    scales) is built once and kept, not rebuilt on every call, with the
+    same code as the functional convs (so the same bits). It is rebuilt
+    when the ``data_ptr``, dtype, device or version counter of ``weight``,
+    ``bias`` or ``act_absmax`` changes: an in-place edit, ``load_state_dict``,
+    ``load_qscales``, ``.to(dtype)`` or ``.to(device)``. Edits through
+    ``.data`` bypass the version counter and are not seen. Inference tensors
+    (parameters made under ``torch.inference_mode``) have no version
+    counter, so such a conv builds its weight side on every call. The cache
+    is no buffer: ``state_dict`` is the same in every mode.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -280,6 +305,7 @@ class QConv(nn.Module):
         self.register_buffer("act_absmax", None, persistent=False)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kh, kw))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self._int8_cache = None  # (key, weight side) of the int8 modes
         if not self.weight.is_meta:
             self.set_path("")
 
@@ -302,7 +328,28 @@ class QConv(nn.Module):
         out = super()._apply(fn, recurse)
         if absmax is not None:  # follow the weight's device, stay fp32
             self.act_absmax = absmax.to(self.weight.device)
+        self._int8_cache = None
         return out
+
+    def _int8_weight_side(self, device: torch.device):
+        """The ``_int8_operands`` of this conv on `device`, from the cache
+        while weight, bias and act_absmax are unchanged."""
+        absmax = self.act_absmax if self.resolved == "int8_static" else None
+        tensors = [t for t in (self.weight, self.bias, absmax)
+                   if t is not None]
+        key = None
+        if not any(t.is_inference() for t in tensors):
+            key = (self.resolved, device) + tuple(
+                (t.data_ptr(), t.dtype, t.device, t._version)
+                for t in tensors)
+            if self._int8_cache is not None and self._int8_cache[0] == key:
+                return self._int8_cache[1]
+        with torch.no_grad():
+            operands = _int8_operands(self.weight.permute(0, 2, 3, 1),
+                                      self.bias, absmax, device)
+        if key is not None:
+            self._int8_cache = (key, operands)
+        return operands
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mode = self.resolved
@@ -310,10 +357,8 @@ class QConv(nn.Module):
             xn = x.permute(0, 2, 3, 1)
             if not xn.is_contiguous():
                 xn = xn.contiguous()
-            w = self.weight.permute(0, 2, 3, 1)
-            absmax = self.act_absmax if mode == "int8_static" else None
-            return _conv_int8(xn, w, self.bias, self.stride, self.pad,
-                              absmax).permute(0, 3, 1, 2)
+            return _conv_int8(xn, self._int8_weight_side(xn.device),
+                              self.stride, self.pad).permute(0, 3, 1, 2)
         if mode == "fake_quant":
             return _fake_quant(x, self.weight, self.bias, self.stride,
                                self.pad, self.act_absmax)
