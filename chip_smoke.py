@@ -81,7 +81,28 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      calibrate_noise_std over {0, 0.05, 0.1} on two batches, and
      evaluate_protocol (with the VAE ceiling) on two B=16 batches of 25
      frames, both tables printed; card against CPU on one B=2 batch in fp32
-     (continuous keys rel 1e-4, CSI/HSS abs 1e-3).
+     (continuous keys rel 1e-4, CSI/HSS abs 1e-3);
+ 12. in a fresh process (chip_smoke.py --train, run after phase 8), GAN
+     training at bench.py::bench_train's shapes: PosAwareAE(latent_dim=
+     2048) + NLayerDiscriminator(1, 64, 3) through make_vae_gan_task, fp32
+     (TF32 off) at B x T = 4 x 4 and bf16 mixed precision at 4, 8 and 16 x
+     4: median ms/step over 10 steps after 2 warm-up steps, steps/s,
+     frames/s, peak memory, the device's busy share (torch.profiler),
+     losses finite on every step; the first fp32 step's rec_loss, g_loss
+     and disc_loss (rel 1e-4), d_weight and grad_norm (rel 1e-2) against
+     the CPU's at full width, both beside the card's float64 step; a
+     resumed Trainer.fit equal to a straight one at small width;
+ 13. in the same process, the fast VAE's GAN step
+     (experiments_gpu/perf/fast_vae_train.py::build_step(FAST_SHAPE), bf16,
+     16 x 4; bench.py::bench_fast_vae_train), with remat off and on: ms/step,
+     steps/s, peak memory, GN kernel launches a step (one a forward
+     GroupNormSiLU call, and again for each recomputed block), the GN
+     kernel's time, bound and F.group_norm+F.silu's at the step's call
+     shapes, the GN backward's device time (the plain version's autograd)
+     and its share of the step, and the kernel's gradient at one training
+     shape against the plain version's autograd;
+ and, after phase 9, the int8 modes' gradients on the card against the
+ CPU's (rel 1e-5).
 The kernels build in parallel (one nvcc per source). fp32 runs with TF32
 off throughout. The line before the last is {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without a GPU it exits 2 and prints no
@@ -164,6 +185,23 @@ EF_CONFIG = os.path.join(REPO, "experiments", "earthformer", "config.yaml")
 EF_STEPS, EF_SEQ = 20, 25          # training steps at the config's batch
 TIMED_BATCHES = (2, 32)
 LATENT_BATCH = 8
+# bench.py::bench_train (bench.py:454-546): PosAwareAE(latent_dim=2048) +
+# NLayerDiscriminator(1, 64, 3) on B x T frames of 128^2; (bf16, B) runs
+GAN_AE = dict(latent_dim=2048)
+GAN_PARAMS = (80_750_017, 2_755_905)     # the JAX modules' counts
+GAN_T, GAN_STEPS = 4, 10
+GAN_RUNS = ((False, 4), (True, 4), (True, 8), (True, 16))
+# card vs CPU on the first fp32 step, relative: the losses to 1e-4; the
+# scalars made from gradients (the adaptive weight, the gradient norm) to
+# 1e-2, since fp32 itself puts them about 2e-3 from a float64 evaluation of
+# the same step (phase 12 prints the card's float64 step beside both)
+GAN_CPU_RTOL = {"rec_loss": 1e-4, "g_loss": 1e-4, "disc_loss": 1e-4,
+                "d_weight": 1e-2, "grad_norm": 1e-2}
+# the resume check's width: tests/test_gan.py's PosAwareAE on 32^2 frames
+GAN_SMALL_AE = dict(enc_channels=(8, 16), dec_channels=(16, 8, 8),
+                    num_blocks=1, latent_hw=8, latent_channels=4,
+                    latent_dim=32)
+FAST_TRAIN_BATCH = 16   # bench.py::bench_fast_vae_train: B x T = 16 x 4
 # (B, T, C, H, W) stencil classes: the training shapes, odd sizes with C > 1
 # and T = 2, and 3x3 frames (one interior element)
 STENCIL_CLASSES = [(2, 12, 1, 128, 128), (32, 12, 1, 128, 128),
@@ -287,6 +325,73 @@ def gn_bound(x, scale, silu):
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * (10 if silu else 7) * x.numel() / FP32_OPS_PER_S
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def time_gn_calls(calls, title):
+    """The GroupNorm kernel at each call shape of `calls` (from
+    ``record_gn_calls``; parameters in x's dtype): its bits against the plain
+    version, its device time in a CUDA graph and with the wrapper's host
+    time (events), the plain version's and F.group_norm+F.silu's, and the
+    bound; returns the totals weighted by the counts and the largest
+    error."""
+    import torch
+    import torch.nn.functional as F
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+
+    log(f"{title}: per GroupNorm call shape (parameters in x's dtype, as "
+        f"the VAE holds them), device ms: kernel in a CUDA graph / kernel "
+        f"with the wrapper (events) / plain / F.group_norm+F.silu / bound")
+    tot = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    err = 0.0
+    for i, ((shape, dtype, cl, groups, eps, silu), count) in enumerate(
+            sorted(calls.items(), key=lambda kv: -np.prod(kv[0][0]))):
+        x, s, b = gn_inputs(shape, dtype, cl, seed=1000 + i)
+        s, b = s.to(dtype), b.to(dtype)
+
+        def kernel():
+            return groupnorm.group_norm_silu_cuda(x, s, b, groups, eps,
+                                                  silu)
+
+        got, again = kernel(), kernel()
+        want = groupnorm.group_norm_silu_reference(x, s, b, groups, eps,
+                                                   silu)
+        ok, e = within_tolerance(got, want)
+        if not ok or not torch.equal(got, again):
+            raise AssertionError(f"kernel != plain at {shape}: {e}, or "
+                                 f"two runs differ")
+        err = max(err, e)
+        del got, again, want
+
+        def library():
+            y = F.group_norm(x, groups, s, b, eps)
+            return F.silu(y) if silu else y
+
+        ms = graph_ms(kernel, 20)
+        call_ms = event_ms(kernel, 20)
+        plain = event_ms(lambda: groupnorm.group_norm_silu_reference(
+            x, s, b, groups, eps, silu), 3)
+        lib = event_ms(library, 20)
+        bound, bytes_ms, ops_ms = gn_bound(x, s, silu)
+        log(f"  {count:2d} x N={shape[0]} C={shape[1]} "
+            f"{shape[2]}x{shape[3]} {str(dtype)[6:]} "
+            f"{'channels_last' if cl else 'NCHW'} eps={eps:g} "
+            f"silu={silu}: {ms:.4f} / {call_ms:.4f} / {plain:.4f} / "
+            f"{lib:.4f} / {bound:.4f} ({bound / ms:.0%} of bound)")
+        for k, v in (("ms", ms), ("event_ms", call_ms),
+                     ("plain_ms", plain), ("library_ms", lib),
+                     ("bound_ms", bound), ("bytes_ms", bytes_ms),
+                     ("ops_ms", ops_ms)):
+            tot[k] += count * v
+        del x
+        torch.cuda.empty_cache()
+    log(f"  summed over the calls ({sum(calls.values())} GroupNorms): "
+        f"kernel {tot['ms']:.3f} ms in CUDA graphs, {tot['event_ms']:.3f} "
+        f"ms with the wrapper; bound {tot['bound_ms']:.3f} ms "
+        f"({tot['bound_ms'] / tot['ms']:.1%} of the graph time); "
+        + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()))
+    return tot, err
 
 
 def profile_step(step, n):
@@ -1327,6 +1432,378 @@ def ensemble_eval_phase(frames, dlinear):
         raise AssertionError(f"card vs CPU metrics differ: {cont}, {count}")
 
 
+def int8_grad_check():
+    """The int8 modes' gradients on the card (the conv kernel forward, the
+    plain version's autograd backward) against the CPU's on the same
+    inputs: x, kernel and bias within rel 1e-5 of their largest magnitude
+    (sums in another order), for int8_conv, int8_conv_static and QConv in
+    int8 mode."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops import quant as tq
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    def grads(mode, arrays, device):
+        x, k, b, absmax = (torch.tensor(a, device=device) for a in arrays)
+        for t in (x, k, b):
+            t.requires_grad_()
+        if mode == "QConv":
+            conv = tq.QConv(k.shape[2], k.shape[3], k.shape[0], padding=1,
+                            mode="int8").to(device)
+            with torch.no_grad():
+                conv.weight.copy_(k.permute(3, 2, 0, 1))
+                conv.bias.copy_(b)
+            y = conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            torch.sum(y ** 2).backward()
+            return [x.grad, conv.weight.grad.permute(2, 3, 1, 0),
+                    conv.bias.grad]
+        if mode == "int8":
+            y = tq.int8_conv(x, k, b, (1, 1), 1)
+        else:
+            y = tq.int8_conv_static(x, k, b, (1, 1), 1, absmax)
+        torch.sum(y ** 2).backward()
+        return [torch.zeros_like(t) if t.grad is None else t.grad
+                for t in (x, k, b)]
+
+    worst = 0.0
+    before = ic.conv_launches
+    for i, (n, h, w, cin, cout) in enumerate(((4, 32, 32, 128, 128),
+                                               (2, 13, 17, 48, 24))):
+        rng = np.random.default_rng(4000 + i)
+        x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
+        arrays = (x, (rng.standard_normal((3, 3, cin, cout)) * 0.1
+                      ).astype(np.float32),
+                  (rng.standard_normal(cout) * 0.1).astype(np.float32),
+                  (np.abs(x).max(axis=(0, 1, 2)) * 0.8).astype(np.float32))
+        for mode in ("int8", "int8_static", "QConv"):
+            want = grads(mode, arrays, "cpu")
+            got = grads(mode, arrays, "cuda")
+            for name, a, b in zip(("x", "kernel", "bias"), got, want):
+                scale = float(b.abs().max())
+                err = float((a.cpu() - b).abs().max())
+                worst = max(worst, err / scale if scale else err)
+                if not err <= 1e-5 * scale:
+                    raise AssertionError(f"int8 gradient card vs CPU, {mode} "
+                                         f"{name} at {(n, h, w, cin, cout)}: "
+                                         f"{err} (scale {scale})")
+    if ic.conv_launches == before:
+        raise AssertionError("the int8 gradients did not launch the kernel")
+    log(f"  int8 gradients on the card (int8_conv, int8_conv_static, QConv "
+        f"int8; x, kernel, bias) equal the CPU's: max err {worst:.3g} of the "
+        f"largest magnitude (rel 1e-5), {ic.conv_launches - before} conv "
+        f"launches (forward, and fp32(acc) again in each backward)")
+
+
+def gan_bench_task(mixed, ae=GAN_AE, ndf=64, n_layers=3):
+    """bench.py::bench_train's task on the port: PosAwareAE + PatchGAN,
+    disc Adam(4.5e-5, 0.5, 0.9), disc_weight 0.5, disc_start 0, and the
+    generator's clip 1.0 + AdamW(1e-4, weight decay 1e-4: optax's
+    default)."""
+    from weatherforecastingtoolkit_tpu_torch.models.conv_ae import PosAwareAE
+    from weatherforecastingtoolkit_tpu_torch.models.losses.gan import (
+        NLayerDiscriminator)
+    from weatherforecastingtoolkit_tpu_torch.training.gan import (
+        make_vae_gan_task)
+    from weatherforecastingtoolkit_tpu_torch.training.optim import adam, adamw
+
+    task = make_vae_gan_task(
+        name="bench_gan", generator_apply=lambda g, f, r: (g(f)[0], None),
+        gen_init=lambda s, d: PosAwareAE(**ae, device=d, seed=s),
+        disc_apply=lambda d, f: d(f),
+        disc_init=lambda s, d: NLayerDiscriminator(1, ndf, n_layers,
+                                                   device=d, seed=s),
+        disc_tx=adam(4.5e-5, b1=0.5, b2=0.9), last_layer_path="dec_out.weight",
+        disc_weight=0.5, disc_start=0, mixed_precision=mixed)
+    return task, adamw(1e-4, weight_decay=1e-4, grad_clip=1.0)
+
+
+def gan_state(task, tx, device, seed=0):
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import (
+        TrainState)
+
+    params = task.init_params(seed, device)
+    return TrainState(step=0, params=params,
+                      opt_state=tx.init(list(params.parameters())),
+                      rng=torch.Generator(device=device).manual_seed(seed),
+                      extra=task.init_extra(seed, params))
+
+
+def check_gan_aux(aux, where):
+    bad = {k: float(v) for k, v in aux.items() if not np.isfinite(float(v))}
+    if bad:
+        raise AssertionError(f"{where}: non-finite {bad}")
+
+
+def timed_steps(step, n):
+    """n steps, each bracketed by synchronize(): (host seconds, auxes)."""
+    import torch
+
+    times, auxes = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, aux = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        auxes.append(aux)
+    return times, auxes
+
+
+def gan_bench_phase(tmp):
+    """Phase 12: bench.py::bench_train on the port (fp32 with TF32 off,
+    and bf16 mixed precision at 4x4, 8x4 and 16x4)."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.training.optim import (
+        count_params)
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+    from weatherforecastingtoolkit_tpu_torch.utils.config import Config
+
+    log(f"phase 12: GAN training at bench.py::bench_train's shapes, "
+        f"PosAwareAE(latent_dim=2048) + NLayerDiscriminator(1, 64, 3), "
+        f"B x {GAN_T} frames of {HW}x{HW}; median of {GAN_STEPS} steps after "
+        f"2 warm-up steps")
+    for mixed, b in GAN_RUNS:
+        tag = f"{'bf16' if mixed else 'fp32'} {b}x{GAN_T}"
+        task, tx = gan_bench_task(mixed)
+        state = gan_state(task, tx, torch.device("cuda"))
+        counts = (count_params(state.params),
+                  count_params(state.extra["disc_params"]))
+        if counts != GAN_PARAMS:
+            raise AssertionError(f"parameter counts {counts} != {GAN_PARAMS}")
+        vil = np.random.default_rng(0).random((b, GAN_T, 1, HW, HW),
+                                              np.float32)
+        batch = {"vil": torch.from_numpy(vil).cuda()}
+
+        def step():
+            return task.custom_train_step(state, batch, tx)
+
+        groupnorm.launches = 0
+        t0 = time.perf_counter()
+        _, first = step()
+        first = {k: float(v) for k, v in first.items()}
+        first_s = time.perf_counter() - t0
+        check_gan_aux(first, f"{tag} step 0")
+        step()
+        torch.cuda.reset_peak_memory_stats()
+        times, auxes = timed_steps(step, GAN_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i, aux in enumerate(auxes):
+            check_gan_aux(aux, f"{tag} step {i + 2}")
+        med = statistics.median(times)
+        busy, wall, count, top = profile_step(step, 3)
+        if groupnorm.launches:
+            raise AssertionError(f"{groupnorm.launches} GN kernel launches: "
+                                 f"PosAwareAE's GroupNorms are F.group_norm")
+        log(f"  {tag}: median {med * 1e3:.2f} ms/step (min "
+            f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}; first step "
+            f"{first_s:.2f} s), {1 / med:.2f} steps/s, "
+            f"{b * GAN_T / med:.1f} frames/s, peak mem {peak:.2f} GiB; "
+            f"profiler, 3 steps: device busy {busy:.2f} of {wall:.2f} ms "
+            f"({busy / wall:.0%}, profiler on), {count:.0f} kernels a step; "
+            f"top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+        log(f"    losses step 0 -> {GAN_STEPS + 1}: loss {first['loss']:.5f} -> "
+            f"{float(auxes[-1]['loss']):.5f}, d_weight "
+            f"{float(auxes[-1]['d_weight']):.4g}, disc_loss "
+            f"{float(auxes[-1]['disc_loss']):.5f}; all finite")
+        del state, batch
+        torch.cuda.empty_cache()
+        if mixed:
+            continue
+        # the first fp32 step against the CPU, same seed and batch, and
+        # against float64 on the card
+        ref = {}
+        for device, dtype in (("cpu", torch.float32), ("cuda", torch.float64)):
+            task, tx = gan_bench_task(False)
+            ref_state = gan_state(task, tx, torch.device(device))
+            for mod in (ref_state.params, ref_state.extra["disc_params"]):
+                mod.to(dtype)
+            ref_state.opt_state = tx.init(list(ref_state.params.parameters()))
+            ref_state.extra["disc_opt_state"] = tx.init(
+                list(ref_state.extra["disc_params"].parameters()))
+            t0 = time.perf_counter()
+            _, aux = task.custom_train_step(ref_state, {"vil": torch.from_numpy(
+                vil).to(device=device, dtype=dtype)}, tx)
+            ref[dtype] = {k: float(aux[k]) for k in GAN_CPU_RTOL}
+            log(f"    first step, {device} {str(dtype)[6:]} "
+                f"({time.perf_counter() - t0:.1f} s): "
+                + ", ".join(f"{k} {v:.7g}" for k, v in ref[dtype].items()))
+            del ref_state
+        cpu, f64 = ref[torch.float32], ref[torch.float64]
+
+        def rel(a, b):
+            return abs(a - b) / max(abs(b), 1e-30)
+
+        log(f"    first fp32 step, card vs CPU: "
+            + ", ".join(f"{k} {first[k]:.7g} / {cpu[k]:.7g} (rel "
+                        f"{rel(first[k], cpu[k]):.2g}, tol {tol:g})"
+                        for k, tol in GAN_CPU_RTOL.items())
+            + "; against the card's float64 step, card fp32 / CPU fp32: "
+            + ", ".join(f"{k} {rel(first[k], f64[k]):.2g} / "
+                        f"{rel(cpu[k], f64[k]):.2g}" for k in GAN_CPU_RTOL))
+        for k, tol in GAN_CPU_RTOL.items():
+            if not abs(first[k] - cpu[k]) <= tol * abs(cpu[k]) + 1e-7:
+                raise AssertionError(f"card vs CPU {k}: {first[k]} vs "
+                                     f"{cpu[k]}")
+        torch.cuda.empty_cache()
+
+    # resume == straight, through Trainer.fit, at small width (bf16)
+    def fit(name, batches, total, resume=False):
+        cfg = Config({"experiment_name": "gan_resume", "seed": 0,
+                      "experiment_path": os.path.join(tmp, name),
+                      "optim": {"schedule": "constant", "lr": 1e-4,
+                                "weight_decay": 1e-4, "grad_clip": 1.0},
+                      "trainer": {"total_train_steps": total,
+                                  "max_epochs": 1, "async_checkpoint": False,
+                                  "save_every_n_steps": 0.5},
+                      "logging": {"log_every_n_steps": 1}})
+        task, _ = gan_bench_task(True, GAN_SMALL_AE, ndf=8, n_layers=2)
+        tr = Trainer(cfg, task, resume=resume)
+        state = tr.fit(batches, state=tr.init_state())
+        tr.close()
+        return state
+
+    torch.backends.cudnn.deterministic = True
+    batches = [{"vil": np.random.default_rng(i).random(
+        (2, 2, 1, 32, 32)).astype(np.float32)} for i in range(4)]
+    straight = fit("straight", batches, 4)
+    fit("resumed", batches[:2], 4)
+    resumed = fit("resumed", batches[2:], 4, resume=True)
+    torch.backends.cudnn.deterministic = False
+
+    def tensors(st):
+        return (list(st.params.state_dict().values())
+                + list(st.extra["disc_params"].state_dict().values())
+                + st.opt_state["mu"] + st.opt_state["nu"]
+                + st.extra["disc_opt_state"]["mu"]
+                + st.extra["disc_opt_state"]["nu"])
+
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tensors(straight), tensors(resumed)))
+    log(f"  resume (bf16, small width): 2 steps, Trainer(resume=True), 2 more "
+        f"vs 4 straight: steps {resumed.step} and {straight.step}, max diff "
+        f"over both models and both Adam states {diff:.3g} (1e-6)")
+    if resumed.step != 4 or not diff <= 1e-6:
+        raise AssertionError(f"resumed GAN run differs from straight: {diff}")
+
+
+def fast_vae_train_phase():
+    """Phase 13: experiments_gpu/perf/fast_vae_train.py::build_step
+    (FAST_SHAPE, bf16) at B x T = 16 x 4, bench.py::bench_fast_vae_train;
+    the GroupNorm kernel inside the trained VAE."""
+    import torch
+
+    from experiments_gpu.perf.fast_vae_train import FAST_SHAPE, build_step
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda.groupnorm import (
+        GroupNormSiLUFunction, group_norm_silu_reference)
+
+    b = FAST_TRAIN_BATCH
+    log(f"phase 13: fast-VAE GAN training (experiments_gpu/perf/"
+        f"fast_vae_train.py::build_step(FAST_SHAPE), bf16 mixed precision), "
+        f"B x T = {b} x {GAN_T}")
+    batch = {"vil": torch.from_numpy(np.random.default_rng(0).random(
+        (b, GAN_T, 1, HW, HW), np.float32)).cuda()}
+    result = {}
+    for remat in (False, True):
+        step_fn, state, n_params = build_step(dict(FAST_SHAPE, remat=remat))
+
+        def step():
+            return step_fn(state, batch)
+
+        calls = record_gn_calls(state.params.gen, step)
+        per_step = sum(calls.values())
+        step()
+        groupnorm.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times, auxes = timed_steps(step, GAN_STEPS)
+        launches = groupnorm.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i, aux in enumerate(auxes):
+            check_gan_aux(aux, f"fast VAE remat={remat} step {i + 2}")
+        med = statistics.median(times)
+        if not per_step or launches != per_step * GAN_STEPS:
+            raise AssertionError(f"fast VAE remat={remat}: {launches} GN "
+                                 f"launches in {GAN_STEPS} steps, expected "
+                                 f"{per_step} a step")
+        busy, wall, count, top = profile_step(step, 3)
+        log(f"  remat={remat} ({n_params} generator parameters): median "
+            f"{med * 1e3:.2f} ms/step (min {min(times) * 1e3:.2f}, max "
+            f"{max(times) * 1e3:.2f}), {1 / med:.2f} steps/s, "
+            f"{b * GAN_T / med:.1f} frames/s, peak mem {peak:.2f} GiB; GN "
+            f"kernel launches {launches} ({launches / GAN_STEPS:g} a step, one "
+            f"a GroupNormSiLU forward call{', recomputed blocks included' if remat else ''}); "
+            f"profiler, 3 steps: device busy {busy:.2f} of {wall:.2f} ms "
+            f"({busy / wall:.0%}, profiler on), {count:.0f} kernels a step; "
+            f"top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+        result[remat] = dict(ms=med, busy=busy, launches=launches,
+                             calls=calls)
+        del state, step_fn
+        torch.cuda.empty_cache()
+    if not result[True]["launches"] > result[False]["launches"]:
+        raise AssertionError("remat did not recompute the GroupNorm kernel")
+
+    calls = result[False]["calls"]
+    tot, _ = time_gn_calls(calls, f"  fast-VAE GAN training bf16 {b}x{GAN_T}, "
+                                  f"forward GroupNorms of one step")
+    # the backward: the autograd of the plain version, by shape, device time
+    bwd_ms, err = 0.0, 0.0
+    for i, ((shape, dtype, cl, groups, eps, silu), count) in enumerate(
+            sorted(calls.items(), key=lambda kv: -np.prod(kv[0][0]))):
+        x, sc, bi = gn_inputs(shape, dtype, cl, seed=1100 + i)
+        leaves = [t.to(dtype).requires_grad_() for t in (x, sc, bi)]
+        y = GroupNormSiLUFunction.apply(*leaves, groups, eps, silu)
+        g = torch.randn(y.shape, device="cuda").to(dtype)
+        if i == 0:   # the kernel's gradient against the plain version's
+            want = torch.autograd.grad(group_norm_silu_reference(
+                *leaves, groups, eps, silu), leaves, g)
+            got = torch.autograd.grad(y, leaves, g, retain_graph=True)
+            for a, w in zip(got, want):
+                ok, e = within_tolerance(a, w)
+                err = max(err, e)
+                if not ok:
+                    raise AssertionError(f"GN gradient at {shape}: {e}")
+        ms = profile_step(lambda: torch.autograd.grad(
+            y, leaves, g, retain_graph=True), 3)[0]
+        bwd_ms += count * ms
+        log(f"    {count:2d} x {shape} {str(dtype)[6:]}: backward (plain "
+            f"version's autograd) {ms:.4f} ms device time")
+        del x, y, g, leaves
+    share = bwd_ms / result[False]["busy"]
+    log(f"  GN kernel gradient at {sorted(calls, key=lambda k: -np.prod(k[0]))[0][0]} "
+        f"(bf16 x, scale, bias) equals the plain version's autograd: max err "
+        f"{err:.3g} (bf16: 1 ulp + 1e-4)")
+    log(f"  per step: GN forward kernel {tot['ms']:.3f} ms (CUDA graphs; "
+        f"bound {tot['bound_ms']:.3f} ms, {tot['bound_ms'] / tot['ms']:.1%} "
+        f"of it; F.group_norm+F.silu {tot['library_ms']:.3f} ms; plain "
+        f"{tot['plain_ms']:.3f} ms); GN backward {bwd_ms:.3f} ms device "
+        f"time, {share:.1%} of the step's {result[False]['busy']:.2f} ms "
+        f"device busy ({bwd_ms / (result[False]['ms'] * 1e3):.1%} of its "
+        f"{result[False]['ms'] * 1e3:.2f} ms)")
+
+
+def train_phase():
+    """Phases 12-13 in a fresh process (``chip_smoke.py --train``): the
+    profiler then sees the card, and the serving phases' memory is gone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gan_")
+    try:
+        gan_bench_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fast_vae_train_phase()
+    return 0
+
+
 def profile_phase():
     """Phase 5's torch.profiler checks, run as ``chip_smoke.py --profile`` in
     a fresh process: one GroupNormSiLU forward and one stencil call are each
@@ -1398,7 +1875,6 @@ def profile_phase():
 
 def main():
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1643,61 +2119,6 @@ def main():
     del vae32, vae16, pipe32, pipe16, init, step
     torch.cuda.empty_cache()
 
-    def time_gn_calls(calls, title):
-        log(f"{title}: per GroupNorm call shape (parameters in x's dtype, as "
-            f"the VAE holds them), device ms: kernel in a CUDA graph / kernel "
-            f"with the wrapper (events) / plain / F.group_norm+F.silu / bound")
-        tot = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
-        err = 0.0
-        for i, ((shape, dtype, cl, groups, eps, silu), count) in enumerate(
-                sorted(calls.items(), key=lambda kv: -np.prod(kv[0][0]))):
-            x, s, b = gn_inputs(shape, dtype, cl, seed=1000 + i)
-            s, b = s.to(dtype), b.to(dtype)
-
-            def kernel():
-                return groupnorm.group_norm_silu_cuda(x, s, b, groups, eps,
-                                                      silu)
-
-            got, again = kernel(), kernel()
-            want = groupnorm.group_norm_silu_reference(x, s, b, groups, eps,
-                                                       silu)
-            ok, e = within_tolerance(got, want)
-            if not ok or not torch.equal(got, again):
-                raise AssertionError(f"kernel != plain at {shape}: {e}, or "
-                                     f"two runs differ")
-            err = max(err, e)
-            del got, again, want
-
-            def library():
-                y = F.group_norm(x, groups, s, b, eps)
-                return F.silu(y) if silu else y
-
-            ms = graph_ms(kernel, 20)
-            call_ms = event_ms(kernel, 20)
-            plain = event_ms(lambda: groupnorm.group_norm_silu_reference(
-                x, s, b, groups, eps, silu), 3)
-            lib = event_ms(library, 20)
-            bound, bytes_ms, ops_ms = gn_bound(x, s, silu)
-            log(f"  {count:2d} x N={shape[0]} C={shape[1]} "
-                f"{shape[2]}x{shape[3]} {str(dtype)[6:]} "
-                f"{'channels_last' if cl else 'NCHW'} eps={eps:g} "
-                f"silu={silu}: {ms:.4f} / {call_ms:.4f} / {plain:.4f} / "
-                f"{lib:.4f} / {bound:.4f} ({bound / ms:.0%} of bound)")
-            for k, v in (("ms", ms), ("event_ms", call_ms),
-                         ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", bound), ("bytes_ms", bytes_ms),
-                         ("ops_ms", ops_ms)):
-                tot[k] += count * v
-            del x
-            torch.cuda.empty_cache()
-        log(f"  per pipeline call ({sum(calls.values())} GroupNorms): "
-            f"kernel {tot['ms']:.3f} ms in CUDA graphs, {tot['event_ms']:.3f} "
-            f"ms with the wrapper; bound {tot['bound_ms']:.3f} ms "
-            f"({tot['bound_ms'] / tot['ms']:.1%} of the graph time); "
-            + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()))
-        return tot, err
-
     fast_tot, _ = time_gn_calls(fast_gn_calls,
                                 f"fast-VAE bf16 B={FAST_BATCH}")
     tot, err = time_gn_calls(gn_calls, f"reference-shape bf16 B={BATCH}")
@@ -1717,12 +2138,17 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ------------------------------- 12.-13. GAN training, a fresh process
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--train"],
+                   check=True)
+
     # ------------------------------ 9.-11. quantized serving, verification
     ref_calls, fast_calls, int8_launches, _ = int8_serving_phase(
         frames, fast_frames, dlinear, out32, out_f32)
     del out32, out_f32, fast_frames
     torch.cuda.empty_cache()
     int8_kernel_phase(ref_calls, fast_calls)
+    int8_grad_check()
     time_int8_calls(fast_calls, f"fast VAE INT8_MIXED_SPEC bf16 B={FAST_BATCH}")
     i8 = time_int8_calls(ref_calls, f"int8_static reference bf16 B={BATCH}")
     ensemble_eval_phase(frames, dlinear)
@@ -1759,4 +2185,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(profile_phase() if sys.argv[1:] == ["--profile"] else main())
+    sys.exit({"--profile": profile_phase, "--train": train_phase}.get(
+        sys.argv[1] if sys.argv[1:] else "", main)())

@@ -19,9 +19,15 @@ Ported so far:
     ``paper_*`` aggregates) and the evaluation protocol (``evaluation.py``);
   * the training harness (``training/``: ``Trainer`` with metric
     validation, optimizer and schedules, checkpoints, logging,
-    ``latent_forecast_task``), ``Config``, the transformer blocks and
-    ``Earthformer``, and the advection-diffusion prior (``ops/stencil.py``,
-    its forward a hand-written Hopper kernel, ``ops/cuda/stencil.py``).
+    ``reconstruction_task``, ``latent_forecast_task``), ``Config``, the
+    transformer blocks and ``Earthformer``, and the advection-diffusion
+    prior (``ops/stencil.py``, its forward a hand-written Hopper kernel,
+    ``ops/cuda/stencil.py``);
+  * GAN training: ``PosAwareAE``/``PosAwareAETF``, the PatchGAN
+    discriminator and its losses, LPIPS (``models/losses/``), bf16 mixed
+    precision (``ops/amp.py``) and the two-optimizer VAE-GAN task
+    (``training/gan.py::make_vae_gan_task``), which trains the
+    ``AutoencoderKL`` with its GroupNorm kernel forward and backward.
 """
 
 __version__ = "0.1.0"
@@ -29,7 +35,9 @@ __version__ = "0.1.0"
 # Lazy top-level aliases (PEP 562), the counterpart of
 # weatherforecastingtoolkit_tpu/__init__.py, listing what the port has.
 _LAZY = {
+    "calc_metrics": ".metrics",
     "Config": ".utils.config",
+    "PosAwareAE": ".models.conv_ae",
     "AutoencoderKL": ".models.vae.autoencoder_kl",
     "DLinear": ".models.forecasters",
     "Earthformer": ".models.earthformer",
@@ -38,7 +46,9 @@ _LAZY = {
     "make_streaming_forecaster": ".models.rollout",
     "persistence_baseline": ".models.rollout",
     "Trainer": ".training.trainer",
+    "reconstruction_task": ".training.tasks",
     "latent_forecast_task": ".training.tasks",
+    "make_vae_gan_task": ".training.gan",
     "CheckpointManager": ".training.checkpoint",
     "build_optimizer": ".training.trainer",
     "evaluate_protocol": ".evaluation",

@@ -24,12 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import lecun_normal_
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.gelu``: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+from .common import gelu, init_flax_defaults  # noqa: F401 (re-exported)
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
@@ -175,21 +170,6 @@ class TransformerDecoder(nn.Module):
 # --------------------------------------------------------------------------
 # flax-default init, and JAX-package params -> port state dict
 # --------------------------------------------------------------------------
-@torch.no_grad()
-def init_flax_defaults(module: nn.Module, rng: np.random.Generator) -> None:
-    """flax's defaults: lecun-normal Dense/Conv kernels, zero biases, unit
-    LayerNorm scales. Parameters owned directly by a module (embeddings) are
-    left to it."""
-    for m in module.modules():
-        if isinstance(m, nn.LayerNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-        elif isinstance(m, (nn.Linear, nn.Conv2d)):
-            lecun_normal_(m.weight, rng)
-            if m.bias is not None:
-                m.bias.zero_()
-
-
 # flax auto-names (``LayerNorm_0``, ``Dense_1``, ...) -> the port's names.
 _SEGMENTS = {"SelfAttention_0": "attn", "LayerNorm_0": "norm1",
              "LayerNorm_1": "norm2", "LayerNorm_2": "norm3",

@@ -43,11 +43,11 @@ _CL = torch.channels_last
 class AutoencoderKL(nn.Module):
     """The diffusers-style VAE with quant convs and a gaussian posterior.
 
-    ``fused_norm``, ``use_slicing`` and ``remat`` are accepted for signature
-    parity with the JAX module. On a CUDA tensor every GroupNorm runs the
-    Hopper kernel whatever ``fused_norm`` says; slicing is a no-op as in JAX;
-    ``remat`` (activation recompute in training) is not ported: the VAE
-    trains only in the GAN slice, and the Path-B tasks keep it frozen.
+    ``fused_norm`` and ``use_slicing`` are accepted for signature parity
+    with the JAX module: on a CUDA tensor every GroupNorm runs the Hopper
+    kernel whatever ``fused_norm`` says, and slicing is a no-op as in JAX.
+    ``remat`` recomputes each encoder and decoder block in the backward
+    (training memory for FLOPs), as in JAX.
     """
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3,
@@ -71,11 +71,11 @@ class AutoencoderKL(nn.Module):
             self.encoder = Encoder(
                 in_channels * f * f, latent_channels, block_out_channels,
                 layers_per_block, norm_num_groups, double_z=True,
-                scales=scales, conv_mode=conv_mode)
+                scales=scales, conv_mode=conv_mode, remat=remat)
             self.decoder = Decoder(
                 latent_channels, out_channels * f * f, block_out_channels,
                 layers_per_block, norm_num_groups, scales=dec_scales,
-                conv_mode=conv_mode)
+                conv_mode=conv_mode, remat=remat)
             self.quant_conv = nn.Conv2d(2 * latent_channels,
                                         2 * latent_channels, 1)
             self.post_quant_conv = nn.Conv2d(latent_channels,

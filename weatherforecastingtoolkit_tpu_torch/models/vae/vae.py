@@ -3,6 +3,9 @@ weatherforecastingtoolkit_tpu/models/vae/vae.py).
 
 ``scales`` (per-block 2 or 4) selects the stacked 4x resamplers; None means
 all 2x. The decoder runs ``layers_per_block + 1`` resnets per block.
+``remat`` recomputes each down/mid/up block in the backward instead of
+keeping its activations (``models/common.py::run_blocks``), as the JAX
+stacks' ``nn.remat``; a recomputed block runs its GroupNorm kernels again.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 from torch import nn
 
 from ...ops.quant import ConvMode, QConv
+from ..common import run_blocks
 from .blocks import (DownEncoderBlock2D, GroupNormSiLU, UNetMidBlock2D,
                      UpDecoderBlock2D)
 
@@ -26,8 +30,9 @@ class Encoder(nn.Module):
                  layers_per_block: int = 2, norm_num_groups: int = 32,
                  double_z: bool = True,
                  scales: Optional[Sequence[int]] = None,
-                 conv_mode: ConvMode = "native"):
+                 conv_mode: ConvMode = "native", remat: bool = False):
         super().__init__()
+        self.remat = remat
         boc = tuple(block_out_channels)
         n = len(boc)
         scales = tuple(scales or (2,) * n)
@@ -45,10 +50,8 @@ class Encoder(nn.Module):
         self.conv_out = QConv(boc[-1], out_ch, 3, padding=1, mode=conv_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv_in(x)
-        for block in self.down_blocks:
-            x = block(x)
-        x = self.mid_block(x)
+        x = run_blocks([*self.down_blocks, self.mid_block], self.conv_in(x),
+                       self.remat)
         return self.conv_out(self.conv_norm_out(x))
 
 
@@ -60,8 +63,9 @@ class Decoder(nn.Module):
                  block_out_channels: Sequence[int] = (64,),
                  layers_per_block: int = 2, norm_num_groups: int = 32,
                  scales: Optional[Sequence[int]] = None,
-                 conv_mode: ConvMode = "native"):
+                 conv_mode: ConvMode = "native", remat: bool = False):
         super().__init__()
+        self.remat = remat
         rev = tuple(reversed(tuple(block_out_channels)))
         n = len(rev)
         scales = tuple(scales or (2,) * n)
@@ -79,7 +83,6 @@ class Decoder(nn.Module):
                               mode=conv_mode)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.mid_block(self.conv_in(z))
-        for block in self.up_blocks:
-            x = block(x)
+        x = run_blocks([self.mid_block, *self.up_blocks], self.conv_in(z),
+                       self.remat)
         return self.conv_out(self.conv_norm_out(x))

@@ -29,6 +29,11 @@ epilogue in torch; the card's kernel gives its bits. The kernels are built
 with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (keyed by a hash
 of the source) and bound with ``ctypes``. ``conv_launches`` and
 ``quantize_launches`` count calls that launched each kernel.
+
+Gradients: ``int8_conv2d_nhwc`` is an autograd Function whose backward is
+the autograd of the plain version (``Int8ConvFunction``), so the int8 modes
+differentiate in scale and bias on the card as on the CPU; the codes carry
+no gradient, as in JAX.
 """
 
 from __future__ import annotations
@@ -185,21 +190,36 @@ def quantize_nhwc_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return pad_channels(q).contiguous()
 
 
+def int8_accumulate_plain(xq: torch.Tensor, wq: torch.Tensor,
+                          strides: Tuple[int, int], pad: Pad) -> torch.Tensor:
+    """Codes xq (N, H, W, Cp), wq (Cout, kh, kw, Cp) -> fp32(acc) (N, Ho,
+    Wo, Cout): the float64 conv of the codes cast to int32, then to fp32."""
+    t, b, l, r = pad
+    xd = F.pad(xq.permute(0, 3, 1, 2).double().contiguous(), (l, r, t, b))
+    acc = F.conv2d(xd, wq.permute(0, 3, 1, 2).double().contiguous(),
+                   stride=strides)
+    return acc.to(torch.int32).float().permute(0, 2, 3, 1)
+
+
+def int8_epilogue(acc: torch.Tensor, scale: torch.Tensor,
+                  bias: Optional[torch.Tensor],
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """fp32(acc) (N, Ho, Wo, Cout) * scale + bias rounded to out_dtype, one
+    operation at a time; differentiable in scale and bias."""
+    y = acc * scale
+    if bias is not None:
+        y = y + bias
+    return y.to(out_dtype).contiguous()
+
+
 def int8_conv2d_nhwc_plain(xq: torch.Tensor, wq: torch.Tensor,
                            scale: torch.Tensor, bias: Optional[torch.Tensor],
                            strides: Tuple[int, int], pad: Pad,
                            out_dtype: torch.dtype) -> torch.Tensor:
     """Codes xq (N, H, W, Cp), wq (Cout, kh, kw, Cp) -> y (N, Ho, Wo, Cout):
-    the float64 conv of the codes cast to int32, then fp32(acc) * scale +
-    bias rounded to out_dtype, one operation at a time."""
-    t, b, l, r = pad
-    xd = F.pad(xq.permute(0, 3, 1, 2).double().contiguous(), (l, r, t, b))
-    acc = F.conv2d(xd, wq.permute(0, 3, 1, 2).double().contiguous(),
-                   stride=strides)
-    y = acc.to(torch.int32).float() * scale[:, None, None]
-    if bias is not None:
-        y = y + bias[:, None, None]
-    return y.to(out_dtype).permute(0, 2, 3, 1).contiguous()
+    ``int8_epilogue`` of ``int8_accumulate_plain``."""
+    return int8_epilogue(int8_accumulate_plain(xq, wq, strides, pad), scale,
+                         bias, out_dtype)
 
 
 # ------------------------------------------------------------------ kernels
@@ -318,12 +338,52 @@ def quantize_nhwc(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return quantize_nhwc_cuda(x, s)
 
 
+class Int8ConvFunction(torch.autograd.Function):
+    """Forward: the conv kernel with its epilogue (the plain version for CPU
+    tensors). Backward: the autograd of the plain version. The codes carry
+    no gradient (they are rounded), so the plain version's gradient flows
+    only through its epilogue, to scale and bias, as ``jax.grad`` of the JAX
+    int8 convs gives it; the backward recomputes fp32(acc) (the kernel with
+    a unit scale and no bias on the card, exact) and differentiates
+    ``int8_epilogue``."""
+
+    @staticmethod
+    def forward(ctx, xq, wq, scale, bias, strides, pad, out_dtype):
+        ctx.save_for_backward(xq, wq, scale, bias)
+        ctx.args = (strides, pad, out_dtype)
+        if xq.device.type == "cpu":
+            return int8_conv2d_nhwc_plain(xq, wq, scale, bias, strides, pad,
+                                          out_dtype)
+        return int8_conv2d_nhwc_cuda(xq, wq, scale, bias, strides, pad,
+                                     out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, wq, scale, bias = ctx.saved_tensors
+        strides, pad, out_dtype = ctx.args
+        if xq.device.type == "cpu":
+            acc = int8_accumulate_plain(xq, wq, strides, pad)
+        else:
+            acc = int8_conv2d_nhwc_cuda(
+                xq, wq, torch.ones_like(scale), None, strides, pad,
+                torch.float32)
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip((scale, bias),
+                                         ctx.needs_input_grad[2:4])]
+            wanted = [t for t in leaves if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                int8_epilogue(acc, *leaves, out_dtype), wanted, g))
+        return (None, None) + tuple(
+            next(grads) if t is not None and t.requires_grad else None
+            for t in leaves) + (None, None, None)
+
+
 def int8_conv2d_nhwc(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                      bias: Optional[torch.Tensor], strides: Tuple[int, int],
                      pad: Pad, out_dtype: torch.dtype) -> torch.Tensor:
     """The int8 conv with its epilogue: the kernel on CUDA tensors, the
-    plain version on CPU tensors. pad is (top, bottom, left, right)."""
-    if xq.device.type == "cpu":
-        return int8_conv2d_nhwc_plain(xq, wq, scale, bias, strides, pad,
-                                      out_dtype)
-    return int8_conv2d_nhwc_cuda(xq, wq, scale, bias, strides, pad, out_dtype)
+    plain version on CPU tensors. pad is (top, bottom, left, right).
+    Differentiable in scale and bias (``Int8ConvFunction``)."""
+    return Int8ConvFunction.apply(xq, wq, scale, bias, strides, pad,
+                                  out_dtype)

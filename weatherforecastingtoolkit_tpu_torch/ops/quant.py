@@ -103,15 +103,23 @@ def _w_scale(kf: torch.Tensor) -> torch.Tensor:
                        torch.ones_like(w_absmax))
 
 
+def _weight_scale(w: torch.Tensor, s_a: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(kf, s_w): w (Cout, kh, kw, Cin) in fp32 with the per-input-channel
+    activation scales s_a folded in when given, and its per-output-channel
+    scale; differentiable in w, as in JAX."""
+    kf = w.float()
+    if s_a is not None:
+        kf = kf * s_a
+    return kf, _w_scale(kf)
+
+
 def _weight_codes(w: torch.Tensor, s_a: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel int8 codes of w (Cout, kh, kw, Cin), with the
     per-input-channel activation scales s_a folded in when given. Returns
     (codes int8 (Cout, kh, kw, Cin), s_w fp32 (Cout,))."""
-    kf = w.float()
-    if s_a is not None:
-        kf = kf * s_a
-    s_w = _w_scale(kf)
+    kf, s_w = _weight_scale(w, s_a)
     wq = torch.round(kf / s_w[:, None, None, None]).to(torch.int8)
     return wq.contiguous(), s_w
 
@@ -128,7 +136,9 @@ def _int8_operands(w: torch.Tensor, bias: Optional[torch.Tensor],
     """The weight side of an int8 conv on w (Cout, kh, kw, Cin): the codes
     with Cin padded to 16 (the (Cout, K) matrix the kernel reads), s_w or,
     with act_absmax, the folded per-output-channel scale, the fp32 bias and
-    the per-input-channel activation scale s_a (None when dynamic)."""
+    the per-input-channel activation scale s_a (None when dynamic). The
+    scale and the bias are differentiable in w and bias; the codes, rounded,
+    carry no gradient."""
     s_a = None if act_absmax is None else _act_scale(act_absmax.to(device))
     wq, scale = _weight_codes(w, s_a)
     b = None if bias is None else bias.float()
@@ -142,8 +152,9 @@ def _conv_int8(x: torch.Tensor, operands, strides: Tuple[int, int],
     None: one per-tensor scale from max|x|, computed on x's device)."""
     wq, scale, b, s_a = operands
     if s_a is None:
-        lo, hi = torch.aminmax(x)
-        x_absmax = torch.maximum(-lo, hi).float()
+        # max|x| as JAX writes it: its gradient goes to the largest |x|
+        # (aminmax would read x once, but has no derivative in torch 2.11)
+        x_absmax = torch.amax(torch.abs(x)).float()
         s_x = torch.where(x_absmax > 0, _div127(x_absmax),
                           torch.ones_like(x_absmax))
         scale = s_x * scale
@@ -286,7 +297,11 @@ class QConv(nn.Module):
     ``.data`` bypass the version counter and are not seen. Inference tensors
     (parameters made under ``torch.inference_mode``) have no version
     counter, so such a conv builds its weight side on every call. The cache
-    is no buffer: ``state_dict`` is the same in every mode.
+    is no buffer: ``state_dict`` is the same in every mode. Gradients are
+    JAX's: while autograd records, the scale and the bias are rebuilt from
+    ``weight`` and ``bias`` (the codes stay cached: rounded, they carry no
+    gradient), so weight, bias and, in ``int8``, x (through its scale)
+    get the gradients ``jax.grad`` of the JAX convs gives.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -333,22 +348,34 @@ class QConv(nn.Module):
 
     def _int8_weight_side(self, device: torch.device):
         """The ``_int8_operands`` of this conv on `device`, from the cache
-        while weight, bias and act_absmax are unchanged."""
+        while weight, bias and act_absmax are unchanged. When autograd
+        records and weight or bias requires grad, the scale and the fp32
+        bias are rebuilt from them with the same code (the same bits), so
+        that gradients reach weight and bias as ``jax.grad`` gives them; the
+        cached codes carry no gradient either way."""
         absmax = self.act_absmax if self.resolved == "int8_static" else None
         tensors = [t for t in (self.weight, self.bias, absmax)
                    if t is not None]
-        key = None
+        key = operands = None
         if not any(t.is_inference() for t in tensors):
             key = (self.resolved, device) + tuple(
                 (t.data_ptr(), t.dtype, t.device, t._version)
                 for t in tensors)
             if self._int8_cache is not None and self._int8_cache[0] == key:
-                return self._int8_cache[1]
-        with torch.no_grad():
-            operands = _int8_operands(self.weight.permute(0, 2, 3, 1),
-                                      self.bias, absmax, device)
-        if key is not None:
-            self._int8_cache = (key, operands)
+                operands = self._int8_cache[1]
+        if operands is None:
+            with torch.no_grad():
+                operands = _int8_operands(self.weight.permute(0, 2, 3, 1),
+                                          self.bias, absmax, device)
+            if key is not None:
+                self._int8_cache = (key, operands)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (self.weight, self.bias)
+                if t is not None):
+            wq, _, _, s_a = operands
+            _, scale = _weight_scale(self.weight.permute(0, 2, 3, 1), s_a)
+            b = None if self.bias is None else self.bias.float()
+            operands = (wq, scale, b, s_a)
         return operands
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

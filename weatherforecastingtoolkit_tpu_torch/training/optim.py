@@ -6,7 +6,8 @@ The port computes what optax computes, step for step:
   * schedules are plain functions of the optimizer-update count, with the
     values of ``optax.warmup_cosine_decay_schedule`` and
     ``optax.cosine_onecycle_schedule``;
-  * ``adamw`` is ``optax.chain(clip_by_global_norm(c), adamw(...))`` wrapped
+  * ``adam`` is ``optax.adam``; ``adamw`` is
+    ``optax.chain(clip_by_global_norm(c), adamw(...))`` wrapped
     in ``optax.MultiSteps(k)`` when k > 1. The schedule is read at the update
     count before it is incremented (the first update uses ``schedule(0)``);
     clipping scales by ``max_norm / norm`` only when norm >= max_norm, with
@@ -158,6 +159,12 @@ def adamw(learning_rate: Union[float, Schedule], weight_decay: float = 0.01,
     """AdamW with optional global-norm clipping and gradient accumulation."""
     return AdamW(learning_rate, weight_decay, beta1, beta2, grad_clip,
                  accumulate_steps)
+
+
+def adam(learning_rate: Union[float, Schedule], b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8) -> AdamW:
+    """``optax.adam``: Adam with no weight decay and no clipping."""
+    return AdamW(learning_rate, weight_decay=0.0, beta1=b1, beta2=b2, eps=eps)
 
 
 def lr_range_test(loss_at_lr: Callable[[float], float], start_lr: float = 1e-7,

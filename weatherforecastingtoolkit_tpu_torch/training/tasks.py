@@ -1,15 +1,12 @@
 """Standard training tasks (counterpart of
 weatherforecastingtoolkit_tpu/training/tasks.py): pixel losses, on-device
-dequantisation, and latent forecasting on a frozen autoencoder (Path-B
-training: the forecaster learns to predict the frozen encoder's latents,
-residual-anchored on the last input latent).
+dequantisation, frame reconstruction, and latent forecasting on a frozen
+autoencoder (Path-B training: the forecaster learns to predict the frozen
+encoder's latents, residual-anchored on the last input latent).
 
-All T frames fold into the batch axis for one encoder call. The frozen
+All T frames fold into the batch axis for one model call. The frozen
 encoder runs under ``torch.no_grad``: its weights get no gradient, and its
 GroupNorms run forward only.
-
-``reconstruction_task`` waits for the zoo slice (its models, ``PosAwareAE``
-and ``ViTAE``, are not ported yet).
 """
 
 from __future__ import annotations
@@ -19,6 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.amp import cast_call, to_f32
 from .trainer import Task
 
 
@@ -53,6 +51,42 @@ def dequantize(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.uint8:
         return x.float() * (1.0 / 255.0)
     return x
+
+
+def reconstruction_task(model: torch.nn.Module, key: str = "vil",
+                        loss: str = "l1", name: str = "recon",
+                        mixed_precision: bool = False) -> Task:
+    """Frame autoencoder objective. Batch: {key: (B, T, C, H, W)}; ``model``
+    (``PosAwareAE``, ...) maps frames to (recon, z), and ``init_params``
+    hands the trainer a copy of it on the trainer's device.
+
+    mixed_precision=True runs the network forward and backward in bf16 on
+    copies of the fp32 master parameters (``ops/amp.py``); the loss
+    reduction stays fp32."""
+    loss_fn_px = pixel_loss(loss)
+
+    def init_params(seed, device):
+        return copy.deepcopy(model).to(device)
+
+    def loss_fn(model, batch, rng, step):
+        frames = _frames(dequantize(batch[key]))
+        if mixed_precision:
+            recon, z = to_f32(cast_call(
+                lambda m, f: m(f, deterministic=False), model, frames))
+        else:
+            recon, z = model(frames, deterministic=False)
+        return loss_fn_px(recon, frames), {
+            "latent_norm": torch.mean(torch.abs(z)).detach()}
+
+    def eval_fn(model, batch, rng):
+        x = dequantize(batch[key])
+        b, t = x.shape[:2]
+        with torch.no_grad():
+            recon, _ = model(_frames(x))
+        return _unframes(recon, b, t), x
+
+    return Task(name=name, init_params=init_params, loss_fn=loss_fn,
+                eval_fn=eval_fn)
 
 
 def latent_forecast_task(frozen_ae_apply: Callable, forecaster: torch.nn.Module,
