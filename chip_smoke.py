@@ -101,6 +101,32 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      shapes, the GN backward's device time (the plain version's autograd)
      and its share of the step, and the kernel's gradient at one training
      shape against the plain version's autograd;
+ 14. in a fresh process (chip_smoke.py --zoo, run after phase 13),
+     AlphaPre + the physics prior at experiments/alphapre/config.yaml's
+     widths (dim 32, 3 AmpCells, spec_num 20, 13->12 frames of 128^2, B=2,
+     prior switched on): before training the card against the CPU on the
+     same weights and batch, fp32, each beside a float64 forward on the
+     card (xt, xps, xas and the input amplitudes atol 1e-2, the four losses
+     rel 1e-4; ALPHAPRE_ATOL says why); the input phase at the real bins
+     and on an all-zero frame equal to the CPU's; the port's irfft2 of
+     spectra that are not Hermitian within 1e-5 of numpy's definition
+     (torch.fft.irfft2's distance printed);
+     10 Trainer.fit steps (finite losses, the prior logged, one stencil
+     launch a step), step time, busy share, kernels a step, peak memory;
+     the stencil at the step's shape against its plain version (rel 1e-5)
+     and timed;
+ 15. CustomAutoencoderKL at its default width (64x8x8 latent, timeseries
+     2048), card vs CPU at B=2 (fp32), the forward (posterior mode) at
+     B=64 in fp32 and bf16: ms, frames/s, peak memory, 42 GN launches a
+     forward, one kernel a call at every call shape (CUDA-graph nodes), the
+     kernel against its plain version and timed per call shape (graph,
+     plain, F.group_norm+F.silu, bound);
+ 16. token_vit at experiments/token_vit/config.yaml's widths (frozen
+     random ViTAE, TokenSequenceForecaster), 3 Trainer.fit steps at B=2,
+     one eval_fn call, step time;
+ 17. one reconstruction_task step (experiments_gpu/ae_recon) for each of
+     vit_ae, structured_conv_ae, conv_autoencoder and attention_charged_ae
+     at the registry's default widths (2 x 2 frames, 2 steps each);
  and, after phase 9, the int8 modes' gradients on the card against the
  CPU's (rel 1e-5).
 The kernels build in parallel (one nvcc per source). fp32 runs with TF32
@@ -190,6 +216,25 @@ LATENT_BATCH = 8
 GAN_AE = dict(latent_dim=2048)
 GAN_PARAMS = (80_750_017, 2_755_905)     # the JAX modules' counts
 GAN_T, GAN_STEPS = 4, 10
+ALPHAPRE_CONFIG = os.path.join(REPO, "experiments", "alphapre", "config.yaml")
+TOKEN_VIT_CONFIG = os.path.join(REPO, "experiments", "token_vit",
+                                "config.yaml")
+AE_RECON_CONFIG = os.path.join(REPO, "experiments", "ae_recon", "config.yaml")
+ALPHAPRE_STEPS = 10
+# AlphaPre card vs CPU, max abs error of each forward output checked: the
+# frames (xt, xps, xas, about [0, 1]) 1e-2, the input amplitudes (up to
+# about 8e3 at DC) 1e-2. fp32 itself puts xt 1.7e-3 (CPU) and 3.7e-3 (card)
+# from a float64 forward on the card: the phase of a bin whose value is
+# rounding noise is arbitrary (the predicted phase pha_t differs by up to
+# 8.45 rad between fp32 and float64 on both devices, so it is printed, not
+# checked), and the mixer weights that phase by the amplitudes of AmpliNet's
+# frames. The four losses: rel 1e-4.
+ALPHAPRE_OUTPUTS = ("xt", "xps", "xas", "pha_t", "amps")
+ALPHAPRE_ATOL = {"xt": 1e-2, "xps": 1e-2, "xas": 1e-2, "amps": 1e-2}
+CAKL_BATCH = 64
+CAKL_GN_CALLS = 42    # as the reference-shape VAE: the same block counts
+ZOO_RECON = ("vit_ae", "structured_conv_ae", "conv_autoencoder",
+             "attention_charged_ae")
 GAN_RUNS = ((False, 4), (True, 4), (True, 8), (True, 16))
 # card vs CPU on the first fp32 step, relative: the losses to 1e-4; the
 # scalars made from gradients (the adaptive weight, the gradient norm) to
@@ -1785,6 +1830,464 @@ def fast_vae_train_phase():
         f"{result[False]['ms'] * 1e3:.2f} ms)")
 
 
+def graph_kernels(fn):
+    """cudaGraphNodeType of every node of a CUDA graph that captures one
+    fn() call, after a warm-up call outside the capture (0 is a kernel):
+    what the call puts on the card."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    with open("/proc/self/maps") as maps:
+        path = next(line.split()[-1] for line in maps
+                    if "libcudart.so" in line)
+    rt = ctypes.CDLL(path)
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if rt.cudaGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    return kinds
+
+
+def step_timing(tr, state, batch, title, n=10):
+    """Median host ms of n Trainer steps (after 3 warm-up steps), peak
+    memory, and the profiler's busy share and kernels a step; logged."""
+    import torch
+
+    for _ in range(3):
+        tr._train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, _ = wall_times(lambda: tr._train_step(state, batch), n)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, wall, count, top = profile_step(lambda: tr._train_step(state, batch),
+                                          3)
+    log(f"  {title}: median step {med * 1e3:.2f} ms over {n} (min "
+        f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+        f"{1 / med:.2f} steps/s, peak mem {peak:.2f} GiB; profiler, 3 steps: "
+        f"device busy {busy:.2f} ms of {wall:.2f} ms a step ({busy / wall:.0%}"
+        f", profiler on), {count:.0f} kernels a step; top: "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+    return med
+
+
+def device_ms_by_op(fn, ops):
+    """Device ms of one fn() call (after a warm-up) spent under each aten
+    op of ``ops`` (the kernels it launches itself), from torch.profiler,
+    and the call's total kernel ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == DeviceType.CUDA) / 1e3
+    return {e.key: e.self_device_time_total / 1e3 for e in events
+            if e.key in ops}, total
+
+
+def alphapre_phase(tmp):
+    """Phase 14: AlphaPre + the physics prior at experiments/alphapre/
+    config.yaml's widths through Trainer.fit; before training the card
+    against the CPU on the same weights and batch. Returns the stencil's
+    launches in the counted run and its timing at the step's shape."""
+    import torch
+
+    from experiments_gpu.alphapre.train import build_task
+    from weatherforecastingtoolkit_tpu_torch.data.prefetch import to_device
+    from weatherforecastingtoolkit_tpu_torch.models import alphapre as ap
+    from weatherforecastingtoolkit_tpu_torch.ops import stencil as ps
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
+    from weatherforecastingtoolkit_tpu_torch.training.logging import (
+        read_jsonl_metrics)
+    from weatherforecastingtoolkit_tpu_torch.training.tasks import dequantize
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import (
+        Trainer, derive_steps)
+    from weatherforecastingtoolkit_tpu_torch.utils.config import Config
+
+    base = Config.load(ALPHAPRE_CONFIG).merge(
+        {"physics_prior": {"enabled": True}})
+    m, prior = base.model, base.physics_prior
+    batch = base.dataset.batch_size
+
+    def config(name, n_batches, b):
+        cfg = base.merge({"experiment_path": os.path.join(tmp, name),
+                          "dataset": {"batch_size": b},
+                          "trainer": {"max_epochs": 1,
+                                      "async_checkpoint": False},
+                          "logging": {"log_every_n_steps": 1}})
+        return derive_steps(cfg, n_batches, 0)
+
+    log(f"phase 14: AlphaPre (dim {m.dim}, n_layers {m.n_layers}, spec_num "
+        f"{m.spec_num}, {m.T_in}->{m.T_out} frames of {HW}x{HW}) + prior "
+        f"(weight {prior.weight}, kappa {prior.kappa}) through Trainer.fit, "
+        f"B={batch}, fp32, TF32 off")
+    batches = vil_batches(ALPHAPRE_STEPS, batch, seed=14)
+    task = build_task(config("x", 1, batch))
+
+    # the card against the CPU (same seed, so the same numpy-drawn weights),
+    # each beside a float64 forward on the card
+    outs, losses = {}, {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cuda", torch.float64)):
+        model = task.init_params(0, torch.device(dev)).to(dtype)
+        x = dequantize(torch.from_numpy(batches[0]["vil"]).to(dev)).to(dtype)
+        seen = []
+        hook = model.register_forward_hook(lambda mod, a, out: seen.append(out))
+        with torch.no_grad():
+            _, loss = model.predict(x[:, :m.T_in], x[:, m.T_in:],
+                                    compute_loss=True, step=0)
+        hook.remove()
+        outs[dev, dtype] = [t.double().cpu() for t in seen[0]]
+        losses[dev, dtype] = {k: float(v) for k, v in loss.items()}
+        del model
+    card, cpu = ("cuda", torch.float32), ("cpu", torch.float32)
+    f64 = ("cuda", torch.float64)
+    bad, msg = [], []
+    for i, name in enumerate(ALPHAPRE_OUTPUTS):
+        a, b, r = outs[card][i], outs[cpu][i], outs[f64][i]
+        err = float((a - b).abs().max())
+        atol = ALPHAPRE_ATOL.get(name)
+        msg.append(f"{name} {err:.3g} (card / CPU from float64 "
+                   f"{float((a - r).abs().max()):.3g} / "
+                   f"{float((b - r).abs().max()):.3g}; "
+                   + (f"atol {atol:g})" if atol else "not checked)"))
+        if atol is not None and not err <= atol:
+            bad.append(name)
+    for k, v in losses[cpu].items():
+        rel = abs(losses[card][k] - v) / abs(v)
+        r = losses[f64][k]
+        msg.append(f"{k} rel {rel:.3g} (card / CPU from float64 "
+                   f"{abs(losses[card][k] - r) / abs(r):.3g} / "
+                   f"{abs(v - r) / abs(r):.3g}; rel 1e-4)")
+        if not rel <= 1e-4:
+            bad.append(k)
+    log("  card vs CPU before training, same weights and batch, fp32, max "
+        "abs err: " + "; ".join(msg))
+    if bad:
+        raise AssertionError(f"AlphaPre card vs CPU: {bad}")
+
+    # the input phase (torch.angle of rfft2) at the real bins and on
+    # all-zero frames, and irfft2 of spectra that are not Hermitian in both
+    # of the port's layouts, against the CPU and numpy's definition
+    x = dequantize(torch.from_numpy(batches[0]["vil"]))[:, :m.T_in]
+    x[0, 0] = 0.0                                        # an all-zero frame
+    card = torch.angle(torch.fft.rfft2(x.cuda())).cpu()
+    cpu = torch.angle(torch.fft.rfft2(x))
+    real = [(0, 0), (0, HW // 2), (HW // 2, 0), (HW // 2, HW // 2)]
+    real_err = max(float((card[..., i, j] - cpu[..., i, j]).abs().max())
+                   for i, j in real)
+    jumps = int(((card - cpu).abs() > np.pi).sum())
+    g = torch.Generator(device="cuda").manual_seed(14)
+    errs, c2r = [], []
+    for shape, dim in (((2, 12, 1, HW, HW // 2 + 1), (-2, -1)),
+                       ((2, 32, HW, HW // 2 + 1, 12), (2, 3))):
+        amps = torch.rand(shape, generator=g, device="cuda")
+        pha = (torch.rand(shape, generator=g, device="cuda") - 0.5) * 6.3
+        spec = amps * torch.exp(1j * pha)
+        want = torch.from_numpy(np.fft.irfft2(
+            spec.cpu().numpy().astype(np.complex128), s=(HW, HW), axes=dim))
+        for out, fn in ((errs, lambda: ap.irfft2(spec, (HW, HW), dim=dim)),
+                        (c2r, lambda: torch.fft.irfft2(spec, s=(HW, HW),
+                                                       dim=dim))):
+            out.append(float((fn().cpu().double() - want).abs().max()))
+    log(f"  input phase on the card: the CPU's at the real bins (max err "
+        f"{real_err:.3g}), all-zero frame {float(card[0, 0].abs().max()):g}; "
+        f"{jumps} of {card.numel()} bins 2*pi from the CPU's (rounding-noise "
+        f"bins near the negative real axis); irfft2 of spectra not "
+        f"Hermitian, (B, T, C, H, W_f) and (B, C, H, W_f, T), from numpy's "
+        f"definition in float64: the port's {errs[0]:.3g} and {errs[1]:.3g} "
+        f"(1e-5), torch.fft.irfft2 (cuFFT's 2-D C2R) {c2r[0]:.3g} and "
+        f"{c2r[1]:.3g}")
+    if real_err != 0.0 or card[0, 0].any() or not max(errs) <= 1e-5:
+        raise AssertionError(f"input phase or irfft2 on the card: "
+                             f"{real_err}, {errs}")
+
+    # training: the stencil's launches, losses finite, the prior logged
+    cs.launches = 0
+    groupnorm.launches = 0
+    t0 = time.perf_counter()
+    cfg = config("fit", ALPHAPRE_STEPS, batch)
+    tr = Trainer(cfg, build_task(cfg))
+    state = tr.fit(batches, state=tr.init_state())
+    torch.cuda.synchronize()
+    launches, gn = cs.launches, groupnorm.launches
+    tr.close()
+    recs = [r for r in read_jsonl_metrics(tr.run_dir) if "train_loss" in r]
+    losses = [r["train_loss"] for r in recs]
+    n_params = sum(p.numel() for p in state.params.parameters())
+    log(f"  {ALPHAPRE_STEPS} steps at B={batch} in "
+        f"{time.perf_counter() - t0:.2f} s ({n_params} params): loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}, prior "
+        f"{recs[-1].get('train_physics_prior', float('nan')):.4g}, phase "
+        f"{recs[-1].get('train_phase_loss', float('nan')):.4g}; stencil "
+        f"launches {launches} ({launches / ALPHAPRE_STEPS:g}/step), "
+        f"GroupNorm {gn}")
+    if len(recs) != ALPHAPRE_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"AlphaPre losses: {losses}")
+    if not all("train_physics_prior" in r for r in recs):
+        raise AssertionError("physics_prior missing from the logged aux")
+    if launches != ALPHAPRE_STEPS or gn != 0:
+        raise AssertionError(f"stencil launches {launches} (expected one per "
+                             f"step), GroupNorm {gn}")
+
+    # step time, and the step's kernel time by aten op; the stencil at the
+    # step's shape
+    batch_dev = to_device(batches[0], tr.device)
+    step_timing(tr, state, batch_dev, f"B={batch}")
+    by_op, total = device_ms_by_op(
+        lambda: tr._train_step(state, batch_dev),
+        ("aten::convolution_backward", "aten::cudnn_convolution",
+         "aten::native_group_norm", "aten::native_group_norm_backward",
+         "aten::mm", "aten::_fft_r2c", "aten::_fft_c2c", "aten::_fft_c2r"))
+    log(f"  one step's {total:.2f} ms of kernels by aten op: "
+        + ", ".join(f"{k[6:]} {v:.2f}" for k, v in sorted(
+            by_op.items(), key=lambda kv: -kv[1])))
+    del state, tr
+    torch.cuda.empty_cache()
+    shape = (batch, m.T_out, m.img_channels, HW, HW)
+    x = torch.rand(shape, device="cuda")
+    p = torch.tensor([prior.u, prior.v, prior.kappa], device="cuda")
+    got = float(cs.advection_stencil_cuda(x, p))
+    want = float(ps._frames_reference(x, *p))
+    err = abs(got - want)
+    if not err <= 1e-5 * abs(want):
+        raise AssertionError(f"stencil at {shape}: {got} vs plain {want}")
+    ms = graph_ms(lambda: cs.advection_stencil_cuda(x, p), 100)
+    plain_ms = graph_ms(lambda: ps._frames_reference(x, *p), 20)
+    bound, bound_by = stencil_bound(shape)
+    log(f"  stencil at {shape}: kernel vs plain rel err "
+        f"{err / abs(want):.3g} (1e-5); kernel {ms * 1e3:.2f} us (CUDA "
+        f"graph), plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
+        f"({bound_by}, {bound / ms:.1%} of bound)")
+    return launches
+
+
+def custom_akl_phase():
+    """Phase 15: CustomAutoencoderKL at its default width (64x8x8 latent,
+    timeseries 2048), the forward (posterior mode) at B=CAKL_BATCH in fp32
+    and bf16: GroupNorm launches a forward, one kernel a call at every call
+    shape, the kernel against its plain version and timed per call shape;
+    the card against the CPU at B=2 in fp32."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
+        synthetic_vil_events)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.custom_akl import (
+        CustomAutoencoderKL)
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+
+    ev = synthetic_vil_events(CAKL_BATCH, HW, HW, 1, seed=15)
+    frames = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        ev, (0, 3, 1, 2)))).cuda().float() / 255.0        # (B, 1, H, W)
+    vae32 = CustomAutoencoderKL(seed=0)
+    n_params = sum(p.numel() for p in vae32.parameters())
+    log(f"phase 15: CustomAutoencoderKL (128,256,512,512,512), 64x8x8 latent, "
+        f"timeseries 2048 ({n_params} params), forward (posterior mode) at "
+        f"B={CAKL_BATCH}")
+    cpu = CustomAutoencoderKL(seed=0, device="cpu")
+    with torch.no_grad():
+        want, want_z, _ = cpu(frames[:2].cpu())
+        got, got_z, _ = vae32(frames[:2])
+    err = float((got.cpu() - want).abs().max())
+    zerr = float((got_z.cpu() - want_z).abs().max() / want_z.abs().max())
+    log(f"  card vs CPU fp32, B=2: recon max abs err {err:.3g} (2e-3), "
+        f"z_timeseries {zerr:.3g} of its largest (1e-4)")
+    if not (err <= 2e-3 and zerr <= 1e-4):
+        raise AssertionError(f"CustomAutoencoderKL card vs CPU: {err}, {zerr}")
+    del cpu
+    for dtype in (torch.float32, torch.bfloat16):
+        vae = vae32 if dtype == torch.float32 else \
+            copy.deepcopy(vae32).to(dtype)
+        x = frames.to(dtype)
+
+        def fwd():
+            with torch.inference_mode():
+                return vae(x)
+
+        calls = record_gn_calls(vae, fwd)
+        per_call = sum(calls.values())
+        groupnorm.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times, (recon, z_ts, _) = wall_times(fwd, 5)
+        launches = groupnorm.launches
+        med = statistics.median(times)
+        tag = str(dtype)[6:]
+        log(f"  {tag}: median {med * 1e3:.2f} ms a forward over 5 (min "
+            f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+            f"{CAKL_BATCH / med:.1f} frames/s, peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; GN "
+            f"launches {launches} ({launches / 5:g} a forward, "
+            f"{per_call} GroupNormSiLU calls)")
+        check_frames(recon.float(), (CAKL_BATCH, 1, HW, HW))
+        if tuple(z_ts.shape) != (CAKL_BATCH, 2048):
+            raise AssertionError(f"z_timeseries {tuple(z_ts.shape)}")
+        if per_call != CAKL_GN_CALLS or launches != 5 * per_call:
+            raise AssertionError(f"{launches} GN launches in 5 forwards, "
+                                 f"{per_call} calls a forward; expected "
+                                 f"{CAKL_GN_CALLS} each")
+        kernels = {}
+        for shape, cdtype, cl, groups, eps, silu in calls:
+            xs, s, b = gn_inputs(shape, cdtype, cl, seed=15)
+            s, b = s.to(cdtype), b.to(cdtype)
+            nodes = graph_kernels(lambda: groupnorm.group_norm_silu_cuda(
+                xs, s, b, groups, eps, silu))
+            kernels[(shape, silu)] = nodes
+            if nodes != [0]:
+                raise AssertionError(f"GN at {shape}: graph nodes {nodes}, "
+                                     f"expected one kernel")
+        log(f"  one kernel a GroupNorm call (CUDA-graph nodes) at each of "
+            f"{len(kernels)} call shapes: "
+            + ", ".join(f"{s[1]}x{s[2]}x{s[3]}" for s, _ in sorted(
+                kernels, key=lambda k: -np.prod(k[0]))))
+        del recon, z_ts
+        torch.cuda.empty_cache()
+        time_gn_calls(calls, f"  CustomAutoencoderKL {tag} B={CAKL_BATCH}")
+        del vae
+        torch.cuda.empty_cache()
+
+
+def token_vit_phase(tmp):
+    """Phase 16: the token-sequence Path-B task at experiments/token_vit/
+    config.yaml's widths (frozen random ViTAE, TokenSequenceForecaster)
+    through Trainer.fit, B=2, fp32; step time; one eval_fn call."""
+    from experiments_gpu.token_vit.train import build_task
+    from weatherforecastingtoolkit_tpu_torch.data.prefetch import to_device
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.training.logging import (
+        read_jsonl_metrics)
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import (
+        Trainer, derive_steps)
+    from weatherforecastingtoolkit_tpu_torch.utils.config import Config
+
+    base = Config.load(TOKEN_VIT_CONFIG)
+    v, fc = base.vit_ae, base.forecaster
+    batch = base.dataset.batch_size
+    cfg = derive_steps(base.merge({
+        "experiment_path": os.path.join(tmp, "token_vit"),
+        "trainer": {"max_epochs": 1, "async_checkpoint": False},
+        "logging": {"log_every_n_steps": 1}}), 3, 0)
+    log(f"phase 16: token_vit (frozen ViTAE {v.img_size}^2, patch {v.patch}, "
+        f"d_token {v.d_token}, d_latent {v.d_latent}, depth "
+        f"{v.depth_enc}/{v.depth_dec}, heads {v.heads}; forecaster depth "
+        f"{fc.depth}, heads {fc.num_heads}) through Trainer.fit, B={batch}, "
+        f"fp32")
+    batches = vil_batches(3, batch, seed=16)
+    task = build_task(cfg)
+    groupnorm.launches = 0
+    tr = Trainer(cfg, task)
+    state = tr.fit(batches, state=tr.init_state())
+    tr.close()
+    losses = [r["train_loss"] for r in read_jsonl_metrics(tr.run_dir)
+              if "train_loss" in r]
+    log(f"  3 steps: losses {losses}")
+    if len(losses) != 3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"token_vit losses {losses}")
+    batch_dev = to_device(batches[0], tr.device)
+    pred, gt = task.eval_fn(state.params, batch_dev, None)
+    check_frames(pred, tuple(gt.shape))
+    med = step_timing(tr, state, batch_dev, f"B={batch}")
+    if groupnorm.launches:
+        raise AssertionError("token_vit launched the GroupNorm kernel")
+    return med
+
+
+def registry_phase(tmp):
+    """Phase 17: one reconstruction_task step (experiments_gpu/ae_recon's
+    build_task) for each of ZOO_RECON at the registry's default widths,
+    B x T = 2 x 2 frames of 128^2, through Trainer.fit (2 steps)."""
+    import torch
+
+    from experiments_gpu.ae_recon.train import build_task
+    from weatherforecastingtoolkit_tpu_torch.training.logging import (
+        read_jsonl_metrics)
+    from weatherforecastingtoolkit_tpu_torch.training.optim import (
+        count_params)
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import (
+        Trainer, derive_steps)
+    from weatherforecastingtoolkit_tpu_torch.utils.config import Config
+
+    log(f"phase 17: reconstruction_task (experiments_gpu/ae_recon) at the "
+        f"registry's default widths, B x T = 2 x 2 frames of {HW}x{HW}, 2 "
+        f"steps each")
+    batches = [{"vil": np.ascontiguousarray(b["vil"][:, :2])}
+               for b in vil_batches(2, 2, seed=17)]
+    base = Config.load(AE_RECON_CONFIG)
+    for name in ZOO_RECON:
+        cfg = derive_steps(base.merge({
+            "experiment_path": os.path.join(tmp, name),
+            "trainer": {"max_epochs": 1, "async_checkpoint": False},
+            "logging": {"log_every_n_steps": 1}}), 2, 0)
+        cfg.model = Config({"name": name})
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, build_task(cfg))
+        state = tr.fit(batches, state=tr.init_state())
+        torch.cuda.synchronize()
+        tr.close()
+        losses = [r["train_loss"] for r in read_jsonl_metrics(tr.run_dir)
+                  if "train_loss" in r]
+        log(f"  {name} ({count_params(state.params)} params): losses "
+            f"{losses}, {time.perf_counter() - t0:.2f} s with the build")
+        if len(losses) != 2 or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: losses {losses}")
+        del state, tr
+        torch.cuda.empty_cache()
+
+
+def zoo_phase():
+    """Phases 14-17 in a fresh process (``chip_smoke.py --zoo``): AlphaPre
+    with the prior, CustomAutoencoderKL, token_vit and the registry's
+    frame AEs. The stencil's and GroupNorm's launches on their new paths
+    are checked inside the phases."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
+        for fut in [pool.submit(k.build) for k in (groupnorm, stencil)]:
+            fut.result()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        alphapre_phase(tmp)
+        custom_akl_phase()
+        token_vit_phase(tmp)
+        registry_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phases 14-17: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def train_phase():
     """Phases 12-13 in a fresh process (``chip_smoke.py --train``): the
     profiler then sees the card, and the serving phases' memory is gone."""
@@ -2141,6 +2644,9 @@ def main():
     # ------------------------------- 12.-13. GAN training, a fresh process
     subprocess.run([sys.executable, os.path.abspath(__file__), "--train"],
                    check=True)
+    # ---------------------------------- 14.-17. the model zoo, a fresh process
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--zoo"],
+                   check=True)
 
     # ------------------------------ 9.-11. quantized serving, verification
     ref_calls, fast_calls, int8_launches, _ = int8_serving_phase(
@@ -2185,5 +2691,6 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit({"--profile": profile_phase, "--train": train_phase}.get(
+    sys.exit({"--profile": profile_phase, "--train": train_phase,
+              "--zoo": zoo_phase}.get(
         sys.argv[1] if sys.argv[1:] else "", main)())

@@ -116,3 +116,27 @@ def test_cluster_kernel_bits_bf16_params_ragged_one_kernel(dtype, cuda_device):
             assert graph_node_types(lambda: pgn.group_norm_silu_cuda(
                 x, s, b, 32, 1e-6, True)) == [KERNEL_NODE], (shape,
                                                             param_dtype)
+
+
+# (C, H, W) of CustomAutoencoderKL's GroupNorms at its default widths on
+# 128x128 frames (models/vae/custom_akl.py)
+CAKL_SHAPES = [(128, 128, 128), (256, 64, 64), (512, 32, 32), (512, 16, 16),
+               (512, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_at_custom_akl_shapes(dtype, cuda_device):
+    """The kernel against its plain version at every GroupNorm call shape
+    of CustomAutoencoderKL (N=2, channels_last, SiLU on and off, its eps
+    1e-6; the attention norm's 1e-5 without SiLU at 8x8), one kernel a
+    call; fp32 1e-4, bf16 one ulp + 1e-4."""
+    for c, h, w in CAKL_SHAPES:
+        x, s, b = _inputs((2, c, h, w), getattr(torch, dtype), True,
+                          cuda_device, seed=c + h)
+        for silu, eps in ((True, 1e-6), (False, 1e-5)):
+            got = pgn.group_norm_silu_cuda(x, s, b, 32, eps, silu)
+            want = pgn.group_norm_silu_reference(x, s, b, 32, eps, silu)
+            assert _within_tolerance(got, want), (c, h, w, silu)
+        assert graph_node_types(lambda: pgn.group_norm_silu_cuda(
+            x, s, b, 32, 1e-6, True)) == [KERNEL_NODE]

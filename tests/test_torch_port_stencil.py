@@ -380,3 +380,44 @@ def test_band_plan():
             assert b * c * bands >= 64 and ring == t
     with pytest.raises(ValueError, match="too wide"):
         cs._band(1, 1, 4, 8, 100_000)
+
+
+@pytest.mark.cuda
+def test_kernel_in_the_alphapre_step(cuda_device, tmp_path):
+    """One loss_fn + backward of experiments_gpu/alphapre's task (prior on,
+    5 -> 4 frames of 16x16, dim 16) on the card: one stencil launch, its
+    prior against the plain version on the step's prediction (rel 1e-5),
+    finite loss."""
+    import importlib.util
+    from pathlib import Path
+
+    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
+        synthetic_vil_events)
+    from weatherforecastingtoolkit_tpu_torch.utils.config import Config
+
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "_port_alphapre_train_card",
+        repo / "experiments_gpu" / "alphapre" / "train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cfg = Config.load(str(repo / "experiments" / "alphapre" / "config.yaml"))
+    cfg = cfg.merged_dotlist(["model.T_in=5", "model.T_out=4",
+                              "model.input_shape=[16,16]", "model.dim=16",
+                              "model.n_layers=1", "model.spec_num=4",
+                              "physics_prior.enabled=true"])
+    task = mod.build_task(cfg)
+    model = task.init_params(0, cuda_device)
+    ev = synthetic_vil_events(2, 16, 16, 9, seed=0)
+    vil = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(ev, (0, 3, 1, 2))[:, :, None])).to(cuda_device)
+    cs.launches = 0
+    loss, aux = task.loss_fn(model, {"vil": vil}, None, 0)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert cs.launches == 1
+    with torch.no_grad():
+        pred, _ = model.predict(vil[:, :5].float() * (1.0 / 255.0))
+        want = ps._frames_reference(pred, 0.0, 0.0, 0.05)
+    assert float(aux["physics_prior"]) == pytest.approx(float(want), rel=1e-5)
+    assert np.isfinite(float(loss))

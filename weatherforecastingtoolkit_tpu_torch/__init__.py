@@ -27,7 +27,13 @@ Ported so far:
     discriminator and its losses, LPIPS (``models/losses/``), bf16 mixed
     precision (``ops/amp.py``) and the two-optimizer VAE-GAN task
     (``training/gan.py::make_vae_gan_task``), which trains the
-    ``AutoencoderKL`` with its GroupNorm kernel forward and backward.
+    ``AutoencoderKL`` with its GroupNorm kernel forward and backward;
+  * the rest of the model zoo and its registry (``models/registry.py``,
+    the JAX package's 17 names): ``CustomAutoencoderKL`` (its GroupNorms
+    the Hopper kernel), ``ViTAE`` and the token forecasters, the latent,
+    Path-A and legacy autoencoders, and ``AlphaPre`` (``torch.fft``),
+    trained with the stencil kernel's prior
+    (``experiments_gpu/alphapre/train.py``).
 """
 
 __version__ = "0.1.0"
@@ -39,8 +45,11 @@ _LAZY = {
     "Config": ".utils.config",
     "PosAwareAE": ".models.conv_ae",
     "AutoencoderKL": ".models.vae.autoencoder_kl",
+    "CustomAutoencoderKL": ".models.vae.custom_akl",
+    "ViTAE": ".models.vit_ae",
     "DLinear": ".models.forecasters",
     "Earthformer": ".models.earthformer",
+    "AlphaPre": ".models.alphapre",
     "make_forecast_pipeline": ".models.rollout",
     "make_ensemble_pipeline": ".models.rollout",
     "make_streaming_forecaster": ".models.rollout",

@@ -60,10 +60,12 @@ def depth_to_space(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 @torch.no_grad()
 def lecun_normal_(weight: torch.Tensor, rng: np.random.Generator,
-                  fan_in: Optional[int] = None) -> torch.Tensor:
+                  fan_in: Optional[int] = None,
+                  scale: float = 1.0) -> torch.Tensor:
     """flax's default kernel init on a torch (out, in, ...) weight: fan_in
     is everything but the leading output axis unless given (a transposed
-    conv's weight is (in, out, kh, kw)). The draw comes from numpy, so a seed
+    conv's weight is (in, out, kh, kw)); ``scale=2`` gives flax's
+    ``he_normal``. The draw comes from numpy, so a seed
     gives the same weights under every torch version (torch's own
     ``trunc_normal_`` changed its sampler between versions)."""
     v = rng.standard_normal(weight.shape)
@@ -71,8 +73,16 @@ def lecun_normal_(weight: torch.Tensor, rng: np.random.Generator,
     while out.any():                      # truncate at two sigma by redrawing
         v[out] = rng.standard_normal(int(out.sum()))
         out = np.abs(v) > 2.0
-    std = (1.0 / (fan_in or weight[0].numel())) ** 0.5 / _TRUNC_STD
+    std = (scale / (fan_in or weight[0].numel())) ** 0.5 / _TRUNC_STD
     return weight.copy_(torch.from_numpy(v * std))
+
+
+@torch.no_grad()
+def normal_(param: torch.Tensor, rng: np.random.Generator,
+            std: float = 1.0) -> torch.Tensor:
+    """flax ``initializers.normal(std)`` (embeddings, queries), drawn with
+    numpy."""
+    return param.copy_(torch.from_numpy(rng.standard_normal(param.shape) * std))
 
 
 @torch.no_grad()

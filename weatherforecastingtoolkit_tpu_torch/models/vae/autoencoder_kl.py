@@ -100,17 +100,8 @@ class AutoencoderKL(nn.Module):
                     else:
                         m.act_absmax.copy_(torch.as_tensor(v))
 
-    @torch.no_grad()
     def _init_weights(self, rng: np.random.Generator) -> None:
-        """flax's defaults: lecun-normal kernels, zero biases, unit norms."""
-        for m in self.modules():
-            if isinstance(m, GroupNormSiLU):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif hasattr(m, "weight") and m.weight is not None:
-                lecun_normal_(m.weight, rng)
-                if m.bias is not None:
-                    m.bias.zero_()
+        init_vae_weights(self, rng)
 
     def encode(self, x: torch.Tensor) -> DiagonalGaussianDistribution:
         h = x
@@ -138,6 +129,20 @@ class AutoencoderKL(nn.Module):
         if return_posterior:
             return dec, posterior
         return dec
+
+
+@torch.no_grad()
+def init_vae_weights(module: nn.Module, rng: np.random.Generator) -> None:
+    """flax's defaults: lecun-normal conv and dense kernels, zero biases,
+    unit norms."""
+    for m in module.modules():
+        if isinstance(m, GroupNormSiLU):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif hasattr(m, "weight") and m.weight is not None:
+            lecun_normal_(m.weight, rng)
+            if m.bias is not None:
+                m.bias.zero_()
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,10 @@ Every GroupNorm — ``ResnetBlock2D`` norm1/norm2, the stacks'
 ``conv_norm_out`` and the attention norm (eps 1e-5, no SiLU) — goes through
 ``ops/cuda/groupnorm.py::group_norm_silu``: the Hopper kernel on a CUDA
 tensor, its plain version on a CPU tensor.
+
+``fir_upsample_2d``/``fir_downsample_2d`` are the FIR resamplers, NHWC at
+the interface as in JAX: a depthwise ``F.conv2d`` (``groups=c``) with the
+normalised outer product of the taps.
 """
 
 from __future__ import annotations
@@ -170,6 +174,47 @@ class AttentionBlock(nn.Module):
         out = out.transpose(1, 2).reshape(b, h * w, c)
         out = self.proj_attn(out).reshape(b, h, w, c).permute(0, 3, 1, 2)
         return _rescale(out + x, self.rescale_output_factor)
+
+
+def _fir_kernel_2d(kernel=(1, 3, 3, 1)) -> torch.Tensor:
+    k = torch.tensor(kernel, dtype=torch.float32)
+    k2 = torch.outer(k, k)
+    return k2 / torch.sum(k2)
+
+
+def _depthwise_fir(x: torch.Tensor, k: torch.Tensor, stride: int,
+                   pad: tuple) -> torch.Tensor:
+    """(N, C, H, W) conv with one (kh, kw) filter per channel, ``groups=c``;
+    ``pad`` = (before, after) on both spatial axes."""
+    c = x.shape[1]
+    weight = k.to(device=x.device, dtype=x.dtype).expand(c, 1, *k.shape)
+    x = F.pad(x, (pad[0], pad[1], pad[0], pad[1]))
+    return F.conv2d(x, weight, stride=stride, groups=c)
+
+
+def fir_upsample_2d(x: torch.Tensor, kernel=(1, 3, 3, 1), factor: int = 2
+                    ) -> torch.Tensor:
+    """FIR-filtered upsample, NHWC in and out as in JAX: zero-stuff by
+    ``factor``, then the depthwise FIR filter (scaled by factor**2)."""
+    b, h, w, c = x.shape
+    k = _fir_kernel_2d(kernel) * (factor ** 2)
+    up = x.new_zeros((b, h, factor, w, factor, c))
+    up[:, :, 0, :, 0, :] = x
+    up = up.reshape(b, h * factor, w * factor, c).permute(0, 3, 1, 2)
+    kh = k.shape[0]
+    pad = ((kh - factor + 1) // 2 + factor - 1, (kh - factor) // 2)
+    return _depthwise_fir(up, k, 1, pad).permute(0, 2, 3, 1)
+
+
+def fir_downsample_2d(x: torch.Tensor, kernel=(1, 3, 3, 1), factor: int = 2
+                      ) -> torch.Tensor:
+    """FIR-filtered downsample, NHWC in and out as in JAX: the depthwise FIR
+    filter at stride ``factor``."""
+    k = _fir_kernel_2d(kernel)
+    kh = k.shape[0]
+    pad = ((kh - factor + 1) // 2, (kh - factor) // 2)
+    return _depthwise_fir(x.permute(0, 3, 1, 2), k, factor,
+                          pad).permute(0, 2, 3, 1)
 
 
 class DownEncoderBlock2D(nn.Module):
