@@ -127,6 +127,29 @@ Phases (any failure exits non-zero; no phase's failure is caught):
  17. one reconstruction_task step (experiments_gpu/ae_recon) for each of
      vit_ae, structured_conv_ae, conv_autoencoder and attention_charged_ae
      at the registry's default widths (2 x 2 frames, 2 steps each);
+ 18. in a fresh process (chip_smoke.py --data, run after --zoo), the SEVIR
+     data layer: a sevirlr tree (CATALOG.csv of 512 VIL events at 128^2 x
+     25, 480 before the 2019-06-01 split date and 32 after, written with
+     the port's catalog writer; an empty data/vil/; the train and test
+     packed caches built by the port's build_cache from an in-memory
+     stand-in for the HDF5 reader over synthetic_vil_events) and a sevir
+     tree (32 events at 384^2 x 49); SEVIRDataModule(use_cache=True)
+     validates the caches, builds nothing and serves the in-memory
+     source's bits at the same (event, window); measure_loader samples/s
+     and MB/s, 0 and 4 workers, host batches and through device_prefetch
+     onto the card with rescale "01" and "01_uint8";
+ 19. experiments_gpu/earthformer/train.py's main (in-process) at the
+     config's full width on the sevirlr tree's cache, 40 steps: one stencil
+     launch a step, ms a step fed from the data module beside the same
+     steps on the same batches already on the card, the busy share of
+     each, the test split's metrics, and --resume true continuing at step
+     40;
+ 20. experiments_gpu/latent_dlinear/train.py's main on the same tree at
+     the reference VAE width, B=4, 20 steps and run_test: 16 GroupNorm
+     launches a step, fed and unfed ms a step and busy share, the test
+     split's metric dict and panel PNGs (written without matplotlib),
+     and the first step's loss on the card against the CPU's at
+     the same weights, batch and posterior noise (TF32 off, rel 1e-4);
  and, after phase 9, the int8 modes' gradients on the card against the
  CPU's (rel 1e-5).
 The kernels build in parallel (one nvcc per source). fp32 runs with TF32
@@ -2376,6 +2399,531 @@ def profile_phase():
     return 0
 
 
+# ----------------------------------------------------- 18.-20. the data slice
+# sevirlr tree: 480 train events before the 2019-06-01 split date and 32
+# after, 3 hours apart; sevir tree: 28 + 4 events at 384^2 x 49
+DATA_TREES = {"sevirlr": (480, 32), "sevir": (28, 4)}
+DATA_SPLIT = (2019, 6, 1)
+LOADER_BATCH = 4
+LOADER_BATCHES = {"sevirlr": 40, "sevir": 15}
+EF_SCRIPT = os.path.join(REPO, "experiments_gpu", "earthformer", "train.py")
+LATENT_SCRIPT = os.path.join(REPO, "experiments_gpu", "latent_dlinear",
+                             "train.py")
+# (steps, first timed step, first profiled step) of the two CLI runs
+EF_CLI_STEPS, LATENT_CLI_STEPS = (40, 5, 20), (20, 4, 12)
+
+
+class MemoryReader:
+    """SEVIRReader.read_window's contract over in-memory (H, W, T) uint8
+    VIL events keyed by event id: the stand-in for the HDF5 files, which
+    this phase never writes, so it needs no h5py."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def read_window(self, event, img_type, t_slice=slice(None)):
+        if img_type != "vil":
+            raise KeyError(img_type)
+        arr = self.events[event.event_id]
+        if t_slice.stop is not None and t_slice.stop > arr.shape[-1]:
+            raise IndexError(f"window {t_slice} exceeds {arr.shape[-1]}")
+        return arr[:, :, t_slice]
+
+
+def vil_events(n, hw, t, seed):
+    """n synthetic_vil_events fields, made in 8 threads of chunks."""
+    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
+        synthetic_vil_events)
+
+    chunks = [(i, min(n, i + 16)) for i in range(0, n, 16)]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(lambda c: synthetic_vil_events(
+            c[1] - c[0], hw, hw, t, seed=seed + c[0]), chunks))
+    return np.concatenate(parts)
+
+
+def write_sevir_tree(root, preset, seed):
+    """A SEVIR tree of `preset` under root: CATALOG.csv (written with the
+    port's catalog writer), an empty data/vil/, and the packed caches of the
+    train and test splits, built by the port's build_cache from the
+    in-memory events. Returns the reader over those events."""
+    import datetime
+
+    from weatherforecastingtoolkit_tpu_torch.data.cache import build_cache
+    from weatherforecastingtoolkit_tpu_torch.data.catalog import (
+        build_event_index, write_catalog)
+    from weatherforecastingtoolkit_tpu_torch.data.constants import (
+        DATASET_PRESETS)
+    from weatherforecastingtoolkit_tpu_torch.data.dataset import SEVIRDataset
+
+    p = DATASET_PRESETS[preset]
+    n_train, n_test = DATA_TREES[preset]
+    n = n_train + n_test
+    events = vil_events(n, p["img_height"], p["raw_seq_len"], seed)
+    split = datetime.datetime(*DATA_SPLIT)
+    hours = [-3 * (n_train - i) for i in range(n_train)] + \
+        [3 * (j + 1) for j in range(n_test)]
+    ids = [f"S{800000 + i}" for i in range(n)]
+    rows = [dict(id=ids[i], file_name=f"vil/SEVIR_VIL_CHIP_{i // 32:04d}.h5",
+                 file_index=i % 32, img_type="vil",
+                 time_utc=split + datetime.timedelta(hours=hours[i]),
+                 pct_missing=0.0) for i in range(n)]
+    os.makedirs(os.path.join(root, "data", "vil"))
+    catalog = write_catalog(os.path.join(root, "CATALOG.csv"), rows)
+    reader = MemoryReader(dict(zip(ids, events)))
+    for tag, start, end in (("train", None, split), ("test", split, None)):
+        index = build_event_index(catalog, ("vil",), start, end)
+        ds = SEVIRDataset(catalog=index, data_dir=os.path.join(root, "data"),
+                          seq_len=p["raw_seq_len"],
+                          raw_seq_len=p["raw_seq_len"],
+                          stride=p["raw_seq_len"], layout="NTCHW")
+        ds.reader = reader
+        build_cache(ds, os.path.join(root, "cache_packed"), split=tag,
+                    verbose=False)
+    return reader, events.nbytes
+
+
+def cached_datamodule(root, preset, **kw):
+    """SEVIRDataModule(use_cache=True) over root, set up; it must find
+    valid caches (a rebuild raises)."""
+    from weatherforecastingtoolkit_tpu_torch.data.datamodule import (
+        SEVIRDataModule)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"{preset}: the data module rebuilt a cache")
+
+    dm = SEVIRDataModule(dataset_name=preset, sevir_dir=root, seq_len=25,
+                         stride=12, layout="NTCHW", use_cache=True, **kw)
+    dm._build_cache_once = refuse
+    dm.prepare_data()
+    dm.setup()
+    return dm
+
+
+def data_loader_phase(tmp):
+    """Phase 18: the SEVIR trees, their caches served bit for bit, and the
+    loader's throughput to the host and onto the card."""
+    from weatherforecastingtoolkit_tpu_torch.data.benchmark import (
+        measure_loader)
+    from weatherforecastingtoolkit_tpu_torch.data.datamodule import (
+        SubsetDataset)
+    from weatherforecastingtoolkit_tpu_torch.data.dataset import SEVIRDataset
+    from weatherforecastingtoolkit_tpu_torch.data.prefetch import (
+        BatchLoader, device_prefetch)
+
+    roots = {}
+    for preset, seed in (("sevirlr", 21), ("sevir", 22)):
+        root = os.path.join(tmp, preset)
+        t0 = time.perf_counter()
+        reader, nbytes = write_sevir_tree(root, preset, seed)
+        n_train, n_test = DATA_TREES[preset]
+        log(f"phase 18: {preset} tree, {n_train} + {n_test} VIL events "
+            f"({nbytes / 1e6:.1f} MB uint8), catalog and packed caches "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        dm = cached_datamodule(root, preset, batch_size=LOADER_BATCH,
+                               num_workers=4, seed=0)
+        # the in-memory source through the HDF5 dataset's code, built as the
+        # data module's _make builds the train split
+        ref = SEVIRDataset(
+            catalog=dm.catalog_path, data_dir=dm.raw_data_dir, seq_len=25,
+            raw_seq_len=dm.raw_seq_len, stride=12, layout="NTCHW",
+            end_date=dm.train_test_split_date, shuffle=True, shuffle_seed=1)
+        ref.reader = reader
+        want = BatchLoader(SubsetDataset(ref, dm.sevir_train.indices),
+                           LOADER_BATCH, shuffle=True, seed=0, num_workers=4)
+        n_checked = 0
+        for i, (got, exp) in enumerate(zip(dm.train_loader(), want)):
+            if not (got.keys() == exp.keys() and all(
+                    got[k].dtype == exp[k].dtype
+                    and np.array_equal(got[k], exp[k]) for k in got)):
+                raise AssertionError(f"{preset}: cached batch {i} differs "
+                                     "from the in-memory source")
+            n_checked += 1
+            if n_checked == 8:
+                break
+        test_ref = SEVIRDataset(
+            catalog=dm.catalog_path, data_dir=dm.raw_data_dir, seq_len=25,
+            raw_seq_len=dm.raw_seq_len, stride=12, layout="NTCHW",
+            start_date=dm.train_test_split_date)
+        test_ref.reader = reader
+        for i in range(len(test_ref)):
+            if not np.array_equal(dm.sevir_test[i]["vil"],
+                                  test_ref[i]["vil"]):
+                raise AssertionError(f"{preset}: test sample {i} differs")
+        log(f"  SEVIRDataModule(use_cache=True): caches valid, none built; "
+            f"train {len(dm.sevir_train)} / val {len(dm.sevir_val)} / test "
+            f"{len(dm.sevir_test)} samples; {n_checked} train batches and "
+            f"all {len(test_ref)} test samples equal the in-memory source's "
+            "bits at the same (event, window)")
+        for workers in (0, 4):
+            for route, rescale in (("host", "01"), ("card", "01"),
+                                   ("card", "01_uint8")):
+                m = cached_datamodule(root, preset, batch_size=LOADER_BATCH,
+                                      num_workers=workers, seed=0,
+                                      rescale_method=rescale)
+                sample = m.sevir_train[0]["vil"]
+                loader = m.train_loader()
+                if route == "card":
+                    loader = device_prefetch(loader, device="cuda")
+                bps, sps = measure_loader(loader, LOADER_BATCHES[preset],
+                                          warmup=3)
+                log(f"  {preset} loader, num_workers {workers}, {route} "
+                    f"batches, rescale {rescale} ({sample.dtype}, "
+                    f"{sample.nbytes / 1e6:.2f} MB a sample): {sps:.1f} "
+                    f"samples/s, {sps * sample.nbytes / 1e6:.1f} MB/s "
+                    f"({bps:.2f} batches/s of {LOADER_BATCH})")
+        roots[preset] = root
+    return roots["sevirlr"]
+
+
+class StepProbe:
+    """Wraps Trainer._train_step while a command-line run trains: the
+    launch counts of each step, its device batch, the first step's loss and
+    trainer, the host time of steps [t0, t1) (no profiler) with the host
+    time spent between steps (fetching, pinning and copying the next batch,
+    logging), and a torch.profiler window (CUDA activity only) over steps
+    [t1, n_steps)."""
+
+    def __init__(self, t0, t1, n_steps):
+        self.t0, self.t1, self.n_steps = t0, t1, n_steps
+        self.steps, self.batches, self.deltas, self.gaps = 0, [], [], []
+        self.marks, self.prof, self.first, self.last_end = {}, None, None, None
+
+    def __enter__(self):
+        from weatherforecastingtoolkit_tpu_torch.training.trainer import (
+            Trainer)
+
+        self.cls, self.orig = Trainer, Trainer._train_step
+        probe = self
+
+        def step(tr, state, batch):
+            probe.before(tr, state)
+            counts = probe.counts()
+            out = probe.orig(tr, state, batch)
+            probe.deltas.append(tuple(b - a for a, b in
+                                      zip(counts, probe.counts())))
+            probe.batches.append(batch)
+            if probe.first is None:
+                probe.first = (tr, int(state.step) - 1,
+                               out[1]["loss"].detach().clone())
+            probe.after()
+            return out
+
+        Trainer._train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._train_step = self.orig
+
+    @staticmethod
+    def counts():
+        from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+        from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
+
+        return groupnorm.launches, stencil.launches
+
+    def before(self, tr, state):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.steps == 0:
+            self.start_step = int(state.step)
+        if self.t0 < self.steps < self.t1:
+            self.gaps.append(time.perf_counter() - self.last_end)
+        if self.steps == self.t0:
+            torch.cuda.synchronize()
+            self.marks["plain"] = time.perf_counter()
+        if self.steps == self.t1:   # its start-up outside both windows
+            torch.cuda.synchronize()
+            self.marks["plain_end"] = time.perf_counter()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+            torch.cuda.synchronize()
+            self.marks["profiled"] = time.perf_counter()
+
+    def after(self):
+        import torch
+
+        self.last_end = time.perf_counter()
+        self.steps += 1
+        if self.steps == self.n_steps:
+            torch.cuda.synchronize()
+            self.marks["end"] = time.perf_counter()
+            self.prof.stop()
+
+    def report(self):
+        """(ms a step without the profiler, ms a step and the device's busy
+        share under it, kernels a step, host ms between steps, kernel ms a
+        step, the four kernels with the most device time)."""
+        from torch.autograd import DeviceType
+
+        if self.steps != self.n_steps:
+            raise AssertionError(f"{self.steps} steps, expected "
+                                 f"{self.n_steps}")
+        plain = (self.marks["plain_end"] - self.marks["plain"]) / \
+            (self.t1 - self.t0)
+        n = self.n_steps - self.t1
+        wall = (self.marks["end"] - self.marks["profiled"]) / n
+        kernels = [e for e in self.prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        if not kernels:
+            raise AssertionError("torch.profiler recorded no kernel")
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6 / n
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+        return plain * 1e3, wall * 1e3, busy / wall, \
+            sum(e.count for e in kernels) / n, \
+            statistics.mean(self.gaps) * 1e3, busy * 1e3, \
+            [(e.key[:50], e.self_device_time_total / 1e3 / n) for e in top]
+
+
+def unfed_steps(tr, batches, t0, t1, n_steps, tmp):
+    """The same steps on the same device batches in this process, without
+    the data module: a fresh Trainer of the run's config and task, timed
+    and profiled over the probe's windows."""
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+
+    cfg = tr.cfg.merge({"experiment_path": tmp})
+    other = Trainer(cfg, tr.task)
+    state = other.init_state()
+    probe = StepProbe(t0, t1, n_steps)
+    with probe:
+        for batch in batches[:n_steps]:
+            state, _ = other._train_step(state, batch)
+    other.close()
+    return probe.report()
+
+
+def run_cli(script, argv):
+    """experiments_gpu/<name>/train.py's main, in this process."""
+    import importlib.util
+
+    from experiments_gpu.common import main as cli_main
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_" + os.path.basename(os.path.dirname(script)), script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cli_main(mod.__file__, mod.build_task, argv=argv)
+    return mod
+
+
+def test_metrics(run_dir):
+    from weatherforecastingtoolkit_tpu_torch.training.logging import (
+        read_jsonl_metrics)
+
+    recs = [r for r in read_jsonl_metrics(run_dir) if "test_loss" in r]
+    if len(recs) != 1:
+        raise AssertionError(f"{len(recs)} test records in {run_dir}")
+    return {k[5:]: v for k, v in recs[0].items() if k.startswith("test_")}
+
+
+def log_fed(title, fed, unfed, steps):
+    log(f"  {title}: fed from the data module {fed[0]:.2f} ms a step over "
+        f"steps {steps[0]}-{steps[1] - 1} (no profiler; {fed[4]:.2f} ms of "
+        f"it on the host between steps), {fed[1]:.2f} ms under the "
+        f"profiler, device busy {fed[2]:.0%} ({fed[5]:.2f} ms of kernels), "
+        f"{fed[3]:.0f} kernels a step; the same batches already on the card:"
+        f" {unfed[0]:.2f} ms ({unfed[4]:.2f} ms between steps), "
+        f"{unfed[1]:.2f} ms under the profiler, busy {unfed[2]:.0%} "
+        f"({unfed[5]:.2f} ms of kernels); the unfed kernel time over the fed"
+        f" step: {unfed[5] / fed[0]:.0%}; top kernels a fed step: "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in fed[6]))
+
+
+def cli_earthformer_phase(tree, tmp):
+    """Phase 19: experiments_gpu/earthformer/train.py's main at the
+    config's full width on the sevirlr tree's cache; one stencil launch a
+    step; fed against unfed step time; --resume continues."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
+
+    out = os.path.join(tmp, "ef_cli")
+    n, t0, t1 = EF_CLI_STEPS
+    argv = [f"dataset.sevir_dir={tree}", "dataset.use_cache=true",
+            f"trainer.limit_train_batches={n}",
+            "trainer.max_epochs=1", f"experiment_path={out}"]
+    log(f"phase 19: python experiments_gpu/earthformer/train.py "
+        f"{' '.join(argv[:-1])} (in this process), fp32, TF32 off")
+    probe = StepProbe(t0, t1, n)
+    groupnorm.launches = stencil.launches = 0
+    start = time.perf_counter()
+    with probe:
+        run_cli(EF_SCRIPT, argv)
+    torch.cuda.synchronize()
+    total = (groupnorm.launches, stencil.launches)
+    tr = probe.first[0]
+    per_step = sorted(set(probe.deltas))
+    log(f"  main: {probe.steps} steps from step {probe.start_step}, the "
+        f"test split and the checkpoint in {time.perf_counter() - start:.2f}"
+        f" s; launches a step {per_step} (GroupNorm, stencil), "
+        f"{total[1]} stencil launches in the run (steps and test batches), "
+        f"GroupNorm {total[0]}; first loss {float(probe.first[2]):.5f}")
+    if per_step != [(0, 1)] or probe.start_step != 0:
+        raise AssertionError(f"launches a step {per_step}, start "
+                             f"{probe.start_step}")
+    metrics = test_metrics(tr.run_dir)
+    log(f"  test split: loss {metrics['loss']:.5f}, SSIM "
+        f"{metrics['SSIM']:.4f}, CSI-M {metrics['paper_CSI_M_POOL1']:.4f}")
+    if not all(np.isfinite(list(metrics.values()))):
+        raise AssertionError(f"test metrics {metrics}")
+    fed = probe.report()
+    unfed = unfed_steps(tr, probe.batches, t0, t1, n,
+                        os.path.join(tmp, "ef_unfed"))
+    log_fed(f"B={probe.batches[0]['vil'].shape[0]}", fed, unfed, (t0, t1))
+
+    resumed = StepProbe(0, 1, 5)
+    with resumed:
+        run_cli(EF_SCRIPT, ["--resume", "true"] + argv[:2]
+                + ["trainer.limit_train_batches=5"] + argv[3:])
+    tr2 = resumed.first[0]
+    log(f"  --resume true: run {os.path.basename(tr2.run_dir)} continues "
+        f"at step {resumed.start_step} for {resumed.steps} steps (the "
+        f"first run stopped at {probe.start_step + probe.steps})")
+    if tr2.run_dir != tr.run_dir or \
+            resumed.start_step != probe.start_step + probe.steps:
+        raise AssertionError(f"resume: {tr2.run_dir} at "
+                             f"{resumed.start_step}")
+    return total[1]
+
+
+def latent_cli_phase(tree, tmp):
+    """Phase 20: experiments_gpu/latent_dlinear/train.py's main at the
+    reference VAE width on the sevirlr tree's cache: 16 GroupNorm launches
+    a step, the first step's loss against the CPU's, step times, the test
+    split's metrics and its panel PNG."""
+    import importlib.util
+
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.data.prefetch import to_device
+    from weatherforecastingtoolkit_tpu_torch.models.vae import distributions
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+
+    out = os.path.join(tmp, "latent_cli")
+    n, t0, t1 = LATENT_CLI_STEPS
+    argv = [f"dataset.sevir_dir={tree}", "dataset.use_cache=true",
+            f"trainer.limit_train_batches={n}",
+            "trainer.max_epochs=1", f"experiment_path={out}"]
+    log(f"phase 20: python experiments_gpu/latent_dlinear/train.py "
+        f"{' '.join(argv[:-1])} (in this process), the reference VAE "
+        f"{REFERENCE_VAE['block_out_channels']} frozen, fp32, TF32 off")
+    probe = StepProbe(t0, t1, n)
+    groupnorm.launches = stencil.launches = 0
+    start = time.perf_counter()
+    with probe:
+        mod = run_cli(LATENT_SCRIPT, argv)
+    torch.cuda.synchronize()
+    total = (groupnorm.launches, stencil.launches)
+    tr = probe.first[0]
+    per_step = sorted(set(probe.deltas))
+    log(f"  main: {probe.steps} steps, the test split and the checkpoint "
+        f"in {time.perf_counter() - start:.2f} s; launches a step {per_step} "
+        f"(GroupNorm, stencil); {total[0]} GroupNorm launches in the run "
+        f"(steps, and the test split's encodes and decodes)")
+    if per_step != [(16, 0)]:
+        raise AssertionError(f"GroupNorm launches a step {per_step}, "
+                             "expected 16 (the frozen encoder's)")
+    fed = probe.report()
+    unfed = unfed_steps(tr, probe.batches, t0, t1, n,
+                        os.path.join(tmp, "latent_unfed"))
+    log_fed(f"B={probe.batches[0]['vil'].shape[0]}", fed, unfed, (t0, t1))
+    metrics = test_metrics(tr.run_dir)
+    log("  test split: " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                     sorted(metrics.items())))
+    if not ("paper_HSS_POOL16" in metrics
+            and all(np.isfinite(list(metrics.values())))):
+        raise AssertionError(f"test metrics {metrics}")
+    pngs = sorted(os.listdir(os.path.join(tr.run_dir, "media")))
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"  panel PNGs (Trainer.test's validate, log_images=True): {pngs}; "
+        f"matplotlib importable: {have_mpl}")
+    if not pngs or not all(p.endswith(".png") for p in pngs):
+        raise AssertionError(f"panels {pngs}")
+
+    # the first step's loss, card against CPU: fresh weights from the
+    # config's seeds on each device, the run's first batch, and the
+    # posterior's noise drawn once on the CPU for both devices
+    cfg = tr.cfg.merge({"experiment_path": os.path.join(tmp, "vs_cpu")})
+    noise = {}
+
+    def sample(self, generator=None):
+        key = tuple(self.mean.shape)
+        if key not in noise:
+            noise[key] = torch.randn(key, generator=torch.Generator()
+                                     .manual_seed(0))
+        return self.mean + self.std * noise[key].to(self.mean.device,
+                                                    self.mean.dtype)
+
+    batch = probe.batches[0]
+    losses = {}
+    orig = distributions.DiagonalGaussianDistribution.sample
+    distributions.DiagonalGaussianDistribution.sample = sample
+    try:
+        for device in ("cuda", "cpu"):
+            tick = time.perf_counter()
+            task = mod.build_task(cfg, None, device=device)
+            trainer = Trainer(cfg, task, device=device)
+            state = trainer.init_state()
+            with torch.no_grad():
+                loss, _ = task.loss_fn(state.params,
+                                       to_device(batch, trainer.device),
+                                       state.rng, 0)
+            losses[device] = float(loss)
+            trainer.close()
+            log(f"  first step's loss on {device}: {losses[device]:.8f} "
+                f"({time.perf_counter() - tick:.2f} s)")
+    finally:
+        distributions.DiagonalGaussianDistribution.sample = orig
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    log(f"  card vs CPU, same weights, batch and noise: rel diff {rel:.3g} "
+        f"(rel 1e-4); the run's own first loss {float(probe.first[2]):.6f} "
+        "(the card's noise)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"latent_dlinear card vs CPU: rel {rel}")
+    return total[0]
+
+
+def data_phase():
+    """Phases 18-20 in a fresh process (``chip_smoke.py --data``): the SEVIR
+    data layer and the training command line on a SEVIR tree."""
+    import importlib.util
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log("phase 18 (data process): " + ", ".join(
+        f"{m} {'imports' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("h5py", "pandas", "matplotlib")))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
+        for fut in [pool.submit(k.build) for k in (groupnorm, stencil)]:
+            fut.result()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        tree = data_loader_phase(tmp)
+        cli_earthformer_phase(tree, tmp)
+        latent_cli_phase(tree, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phases 18-20: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main():
     import torch
 
@@ -2647,6 +3195,9 @@ def main():
     # ---------------------------------- 14.-17. the model zoo, a fresh process
     subprocess.run([sys.executable, os.path.abspath(__file__), "--zoo"],
                    check=True)
+    # ------------------ 18.-20. data and the command line, a fresh process
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--data"],
+                   check=True)
 
     # ------------------------------ 9.-11. quantized serving, verification
     ref_calls, fast_calls, int8_launches, _ = int8_serving_phase(
@@ -2692,5 +3243,5 @@ def main():
 
 if __name__ == "__main__":
     sys.exit({"--profile": profile_phase, "--train": train_phase,
-              "--zoo": zoo_phase}.get(
+              "--zoo": zoo_phase, "--data": data_phase}.get(
         sys.argv[1] if sys.argv[1:] else "", main)())

@@ -15,23 +15,34 @@ Drive it through ``Trainer.fit``::
     trainer = Trainer(cfg, build_task(cfg))
     state = trainer.fit(loader)   # batches {"vil": uint8 (B, 25, 1, H, W)}
 
-The command-line entry point of the JAX experiment (``main`` in
-experiments/common.py) waits for the port's data slice: it needs the SEVIR
-data module and HDF5 reading, which the port does not have yet.
+The command line (``experiments_gpu/common.py::main``) trains it from a
+SEVIR tree, on ``cuda`` unless ``--device cpu`` is given::
+
+    python experiments_gpu/earthformer/train.py dataset.sevir_dir=... \
+        dataset.use_cache=true
 """
 
 from __future__ import annotations
 
-import torch
+import os
+import sys
 
-from weatherforecastingtoolkit_tpu_torch.models.earthformer import Earthformer
-from weatherforecastingtoolkit_tpu_torch.ops.stencil import (
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+
+import torch  # noqa: E402
+
+from weatherforecastingtoolkit_tpu_torch.models.earthformer import Earthformer  # noqa: E402
+from weatherforecastingtoolkit_tpu_torch.ops.stencil import (  # noqa: E402
     advection_diffusion_prior)
-from weatherforecastingtoolkit_tpu_torch.training.tasks import (
+from weatherforecastingtoolkit_tpu_torch.training.tasks import (  # noqa: E402
     Task, dequantize, pixel_loss)
 
 
-def build_task(cfg, dm=None) -> Task:
+def build_task(cfg, dm=None, device=None) -> Task:
+    """The Task of the config. ``device`` is accepted for the command
+    line's uniform call: ``init_params`` builds the model on the trainer's
+    device."""
     m = cfg.model
     px = pixel_loss(cfg.get("loss", "mse"))
     prior = cfg.get("physics_prior", {})
@@ -75,3 +86,9 @@ def build_task(cfg, dm=None) -> Task:
 
     return Task(name=cfg.experiment_name, init_params=init_params,
                 loss_fn=loss_fn, eval_fn=eval_fn)
+
+
+if __name__ == "__main__":
+    from experiments_gpu.common import main
+
+    main(__file__, build_task)

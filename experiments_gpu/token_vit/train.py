@@ -13,19 +13,25 @@ and gets no gradient.
 
 Not here yet: loading the ViTAE from a run directory
 (``vit_ae.ckpt_run_dir``; the JAX experiment restores a JAX checkpoint)
-raises. The command-line entry point waits for the port's data slice, as
-experiments_gpu/earthformer/train.py says.
+raises. The command line (``experiments_gpu/common.py::main``) trains it
+from a SEVIR tree, on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
-import torch
+import os
+import sys
 
-from weatherforecastingtoolkit_tpu_torch.models.token_forecaster import (
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+
+import torch  # noqa: E402
+
+from weatherforecastingtoolkit_tpu_torch.models.token_forecaster import (  # noqa: E402
     TokenSequenceForecaster)
-from weatherforecastingtoolkit_tpu_torch.models.vit_ae import ViTAE
-from weatherforecastingtoolkit_tpu_torch.training.tasks import Task, dequantize
-from weatherforecastingtoolkit_tpu_torch.utils.device import DeviceLike
+from weatherforecastingtoolkit_tpu_torch.models.vit_ae import ViTAE  # noqa: E402
+from weatherforecastingtoolkit_tpu_torch.training.tasks import Task, dequantize  # noqa: E402
+from weatherforecastingtoolkit_tpu_torch.utils.device import DeviceLike  # noqa: E402
 
 
 def make_vit(cfg, device: DeviceLike = None) -> ViTAE:
@@ -43,10 +49,13 @@ def make_vit(cfg, device: DeviceLike = None) -> ViTAE:
     return vit.requires_grad_(False).eval()
 
 
-def build_task(cfg, dm=None, vit: ViTAE = None) -> Task:
+def build_task(cfg, dm=None, device: DeviceLike = None,
+               vit: ViTAE = None) -> Task:
+    """The Task of the config; the frozen ViTAE (``make_vit``) on
+    ``device`` (None: cuda) unless ``vit`` is given."""
     v = cfg.vit_ae
     t_in, t_out = cfg.dataset.input_frames, cfg.dataset.pred_frames
-    vit = make_vit(cfg) if vit is None else vit
+    vit = make_vit(cfg, device) if vit is None else vit
     n_tok = vit.n_patches
 
     def encode_seq(x):
@@ -86,3 +95,9 @@ def build_task(cfg, dm=None, vit: ViTAE = None) -> Task:
 
     return Task(name=cfg.experiment_name, init_params=init_params,
                 loss_fn=loss_fn, eval_fn=eval_fn)
+
+
+if __name__ == "__main__":
+    from experiments_gpu.common import main
+
+    main(__file__, build_task)

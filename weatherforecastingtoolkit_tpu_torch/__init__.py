@@ -33,7 +33,11 @@ Ported so far:
     the Hopper kernel), ``ViTAE`` and the token forecasters, the latent,
     Path-A and legacy autoencoders, and ``AlphaPre`` (``torch.fft``),
     trained with the stencil kernel's prior
-    (``experiments_gpu/alphapre/train.py``).
+    (``experiments_gpu/alphapre/train.py``);
+  * the SEVIR data layer (``data/``: catalog, windows, HDF5 and packed-cache
+    datasets, ``SEVIRDataModule``, preflight, download; numpy on the host,
+    no pandas, h5py only where HDF5 is read or written), profiling hooks,
+    and the training command line (``experiments_gpu/common.py``).
 """
 
 __version__ = "0.1.0"
@@ -62,6 +66,8 @@ _LAZY = {
     "build_optimizer": ".training.trainer",
     "evaluate_protocol": ".evaluation",
     "EvalReport": ".evaluation",
+    "SEVIRDataModule": ".data.datamodule",
+    "SEVIRDataset": ".data.dataset",
 }
 
 

@@ -1,0 +1,329 @@
+"""SEVIRDataModule: dataset presets + train/val/test splits + loaders
+(counterpart of weatherforecastingtoolkit_tpu/data/datamodule.py).
+
+Capability parity with the reference's `SEVIRLightningDataModule`
+(reference pipeline/datasets/sevir/sevir.py:1070-1234): 'sevir' (384², 49
+frames @5 min) vs 'sevirlr' (128², 25 frames @10 min) presets, date-based
+train/test split at `train_test_split_date`, random train/val split by
+`val_ratio` with a fixed seed, and per-split loaders. The sevire-style 3-way
+date split (reference sevire/sevir.py:1240-1245) is available via
+`val_split_date`.
+
+Download helpers (`download_sevir`/`download_sevirlr`) are real: stdlib
+resumable HTTP against the public S3 buckets (data/download.py), replacing
+the reference's `aws s3 cp`/`wget` shell-outs (sevir/sevir.py:930-977).
+
+`use_cache=True` routes every split through the packed mmap cache
+(data/cache.py): `prepare_data` builds (or re-validates) one contiguous
+raw-dtype array per split under `cache_dir`, and the loaders serve zero-copy
+strided views instead of HDF5 chunk reads — the measured ~2x fix for the I/O
+bottleneck the reference proved (reference pipeline/datasets/sevir/test.py:42-72).
+Samples are bit-identical to the HDF5 path, and to the JAX package's
+(tests/test_torch_port_data.py). The cache path reads no HDF5, so it runs
+where h5py is absent once the caches exist.
+
+Under ``torch.distributed`` (initialized, world size above 1) the events are
+sharded one shard per rank unless the caller shards explicitly.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import tempfile
+import time
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from .catalog import build_event_index
+from .constants import DATASET_PRESETS
+from .dataset import SEVIRDataset
+from .prefetch import BatchLoader
+
+
+class SubsetDataset:
+    """Index-remapped view of a dataset (torch random_split analog)."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[int(self.indices[i])]
+
+    def set_epoch(self, epoch):
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+
+def download_sevir(save_dir: str, **kw) -> str:
+    """Resumable anonymous-S3 fetch of SEVIR (see data/download.py).
+
+    Replaces the reference's ``aws s3 cp`` shell-out (sevir.py:937-956);
+    raises DownloadError with manual instructions when there is no egress.
+    """
+    from .download import download_sevir as _dl
+    return _dl(save_dir, **kw)
+
+
+def download_sevirlr(save_dir: str, **kw) -> str:
+    """Resumable fetch + extract of sevir_lr.zip (see data/download.py).
+
+    Replaces the reference's ``wget``/``unzip``/``mv`` shell-out
+    (sevir.py:959-977), including the wrapper-folder flattening.
+    """
+    from .download import download_sevirlr as _dl
+    return _dl(save_dir, **kw)
+
+
+class SEVIRDataModule:
+    def __init__(
+        self,
+        dataset_name: str = "sevirlr",
+        sevir_dir: Optional[str] = None,
+        seq_len: int = 25,
+        stride: int = 12,
+        layout: str = "NTCHW",
+        batch_size: int = 1,
+        num_workers: int = 4,
+        seed: int = 0,
+        val_ratio: float = 0.1,
+        aug_mode: str = "0",
+        aug_interp: str = "nearest",
+        rescale_method: str = "01",
+        data_types: Sequence[str] = ("vil",),
+        start_date: Optional[Tuple[int, ...]] = None,
+        train_test_split_date: Optional[Tuple[int, ...]] = (2019, 6, 1),
+        val_split_date: Optional[Tuple[int, ...]] = None,
+        end_date: Optional[Tuple[int, ...]] = None,
+        num_shard: int = 1,
+        rank: int = 0,
+        catalog_path: Optional[str] = None,
+        raw_data_dir: Optional[str] = None,
+        shuffle_train: bool = True,
+        use_cache: bool = False,
+        cache_dir: Optional[str] = None,
+        run_preflight: bool = False,
+    ):
+        if dataset_name not in DATASET_PRESETS:
+            raise ValueError(
+                f"Wrong dataset name {dataset_name}. Must be one of {tuple(DATASET_PRESETS)}.")
+        preset = DATASET_PRESETS[dataset_name]
+        if layout[0] != "N":
+            raise ValueError("layout must start with 'N' (batch axis leads)")
+        self.dataset_name = dataset_name
+        self.sevir_dir = sevir_dir
+        self.catalog_path = catalog_path or (os.path.join(sevir_dir, "CATALOG.csv")
+                                             if sevir_dir else None)
+        self.raw_data_dir = raw_data_dir or (os.path.join(sevir_dir, "data")
+                                             if sevir_dir else None)
+        self.raw_seq_len = preset["raw_seq_len"]
+        self.interval_real_time = preset["interval_real_time"]
+        self.img_height = preset["img_height"]
+        self.img_width = preset["img_width"]
+        self.seq_len = seq_len
+        self.stride = stride
+        self.layout = layout
+        self.batch_size = batch_size
+        self.num_workers = num_workers
+        self.seed = seed
+        self.val_ratio = val_ratio
+        self.aug_mode = aug_mode
+        self.aug_interp = aug_interp
+        self.rescale_method = rescale_method
+        self.data_types = tuple(data_types)
+        # auto-shard under torch.distributed: when the caller didn't ask for
+        # explicit sharding and this process is one rank of an initialized
+        # multi-process group, default to one shard per rank (the analog of
+        # the reference wiring SEVIRDataLoader(num_shard, rank) from the
+        # launcher, sevir/sevir.py:161-172 — which its Lightning configs never
+        # actually did).
+        if num_shard == 1:
+            import torch.distributed as dist
+
+            if (dist.is_available() and dist.is_initialized()
+                    and dist.get_world_size() > 1):
+                num_shard = dist.get_world_size()
+                rank = dist.get_rank()
+                print(f"[data] auto-sharding events: rank "
+                      f"{rank + 1}/{num_shard} (torch.distributed)")
+        self.num_shard = num_shard
+        self.rank = rank
+        self.shuffle_train = shuffle_train
+        self.run_preflight = run_preflight
+        self.use_cache = use_cache
+        self.cache_dir = cache_dir or (os.path.join(sevir_dir, "cache_packed")
+                                       if sevir_dir else None)
+
+        def _dt(v):
+            return datetime.datetime(*v) if v is not None else None
+
+        self.start_date = _dt(start_date)
+        self.train_test_split_date = _dt(train_test_split_date)
+        self.val_split_date = _dt(val_split_date)
+        self.end_date = _dt(end_date)
+        self.sevir_train = self.sevir_val = self.sevir_test = None
+
+    # -- lifecycle -----------------------------------------------------------
+    def prepare_data(self) -> None:
+        if not (self.catalog_path and os.path.exists(self.catalog_path)):
+            raise FileNotFoundError(
+                f"CATALOG.csv not found at {self.catalog_path}; see "
+                "download_sevir/download_sevirlr for instructions.")
+        if not os.path.exists(self.raw_data_dir):
+            raise FileNotFoundError(f"SEVIR data dir not found: {self.raw_data_dir}")
+        if self.run_preflight:
+            # fail fast, BEFORE a long run, on schema/geometry mismatches
+            # (docs/real_sevir.md) — raises PreflightError with the report
+            from .preflight import preflight
+            rep = preflight(self.sevir_dir or os.path.dirname(self.catalog_path),
+                            dataset_name=self.dataset_name,
+                            data_types=self.data_types,
+                            catalog_path=self.catalog_path,
+                            raw_data_dir=self.raw_data_dir, strict=True)
+            print(rep.summary())
+
+    def _make(self, start, end, aug_mode, shuffle, tag="train"):
+        if self.use_cache:
+            return self._make_cached(start, end, aug_mode, shuffle, tag)
+        return SEVIRDataset(
+            catalog=self.catalog_path, data_dir=self.raw_data_dir,
+            data_types=self.data_types, seq_len=self.seq_len,
+            raw_seq_len=self.raw_seq_len, stride=self.stride, layout=self.layout,
+            num_shard=self.num_shard, rank=self.rank, split_mode="uneven",
+            start_date=start, end_date=end, shuffle=shuffle,
+            shuffle_seed=self.seed + 1, rescale_method=self.rescale_method,
+            aug_mode=aug_mode, aug_seed=self.seed, aug_interp=self.aug_interp)
+
+    def _make_cached(self, start, end, aug_mode, shuffle, tag):
+        """Cache-backed twin of _make: build/validate the packed cache for
+        this split's date range, then serve it (bit-identical samples)."""
+        from .cache import CachedSEVIRDataset, build_cache, cache_valid
+
+        index = build_event_index(self.catalog_path, self.data_types, start, end)
+        ids = [ev.event_id for ev in index]
+        if not cache_valid(self.cache_dir, tag, ids, self.data_types,
+                           self.raw_seq_len):
+            self._build_cache_once(index, ids, tag)
+        # same event permutation EventIndex.shuffled(seed) would produce, so
+        # cached and HDF5 paths index identical (event, window) pairs
+        perm = (np.random.default_rng(self.seed + 1).permutation(len(index))
+                if shuffle else None)
+        return CachedSEVIRDataset(
+            self.cache_dir, split=tag, data_types=self.data_types,
+            seq_len=self.seq_len, stride=self.stride, layout=self.layout,
+            rescale_method=self.rescale_method, aug_mode=aug_mode,
+            aug_seed=self.seed, aug_interp=self.aug_interp,
+            num_shard=self.num_shard, rank=self.rank,
+            split_mode="uneven", event_perm=perm)
+
+    def _build_cache_once(self, index, ids, tag,
+                          stale_lock_s: float = 3600.0) -> None:
+        """Build the packed cache for `tag` exactly once across concurrent
+        processes (multi-host ranks share a filesystem, so with num_shard>1
+        every rank reaches this point at the same time). One process wins an
+        O_EXCL lockfile and builds into a temp dir, publishing with atomic
+        renames — array files first, meta last, so `cache_valid` (which keys
+        on the meta) only flips once the cache is complete. Losers poll until
+        the cache is valid. A lock older than `stale_lock_s` is presumed
+        abandoned (its process crashed) and is stolen."""
+        from .cache import build_cache, cache_valid
+
+        os.makedirs(self.cache_dir, exist_ok=True)
+        lock = os.path.join(self.cache_dir, f".{tag}.build_lock")
+        while not cache_valid(self.cache_dir, tag, ids, self.data_types,
+                              self.raw_seq_len):
+            try:
+                fd = os.open(lock, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            except FileExistsError:
+                try:
+                    if os.path.getmtime(lock) < time.time() - stale_lock_s:
+                        os.unlink(lock)
+                        continue
+                except OSError:
+                    pass  # lock vanished between the checks — retry
+                time.sleep(0.5)
+                continue
+            try:
+                os.write(fd, str(os.getpid()).encode())
+                os.close(fd)
+                print(f"[cache] building packed cache for split {tag!r} "
+                      f"({len(index)} events) at {self.cache_dir}")
+                source = SEVIRDataset(
+                    catalog=index, data_dir=self.raw_data_dir,
+                    data_types=self.data_types, seq_len=self.raw_seq_len,
+                    raw_seq_len=self.raw_seq_len, stride=self.raw_seq_len,
+                    layout=self.layout)
+                tmp = tempfile.mkdtemp(prefix=f".build_{tag}_",
+                                       dir=self.cache_dir)
+                try:
+                    build_cache(source, tmp, split=tag)
+                    for t in self.data_types:
+                        src = os.path.join(tmp, f"{tag}_{t}.npy")
+                        if os.path.exists(src):  # empty splits have no arrays
+                            os.replace(src,
+                                       os.path.join(self.cache_dir,
+                                                    f"{tag}_{t}.npy"))
+                    os.replace(os.path.join(tmp, f"{tag}_meta.json"),
+                               os.path.join(self.cache_dir,
+                                            f"{tag}_meta.json"))
+                finally:
+                    if os.path.isdir(tmp) and not os.listdir(tmp):
+                        os.rmdir(tmp)
+            finally:
+                try:
+                    os.unlink(lock)
+                except OSError:
+                    pass
+
+    def setup(self, stage: Optional[str] = None) -> None:
+        if stage in (None, "fit"):
+            if self.val_split_date is not None:
+                # sevire-style 3-way date split
+                self.sevir_train = self._make(self.start_date, self.val_split_date,
+                                              self.aug_mode, True, "train")
+                self.sevir_val = self._make(self.val_split_date,
+                                            self.train_test_split_date, "0",
+                                            False, "val")
+            else:
+                full = self._make(self.start_date, self.train_test_split_date,
+                                  self.aug_mode, True, "train")
+                n = len(full)
+                rng = np.random.default_rng(self.seed)
+                perm = rng.permutation(n)
+                n_val = int(round(n * self.val_ratio))
+                self.sevir_val = SubsetDataset(full, perm[:n_val])
+                self.sevir_train = SubsetDataset(full, perm[n_val:])
+        if stage in (None, "test"):
+            self.sevir_test = self._make(self.train_test_split_date, self.end_date,
+                                         "0", False, "test")
+
+    # -- loaders -------------------------------------------------------------
+    def train_loader(self) -> BatchLoader:
+        return BatchLoader(self.sevir_train, self.batch_size,
+                           shuffle=self.shuffle_train, seed=self.seed,
+                           num_workers=self.num_workers)
+
+    def val_loader(self) -> BatchLoader:
+        return BatchLoader(self.sevir_val, self.batch_size, shuffle=False,
+                           num_workers=self.num_workers)
+
+    def test_loader(self) -> BatchLoader:
+        return BatchLoader(self.sevir_test, self.batch_size, shuffle=False,
+                           num_workers=self.num_workers)
+
+    @property
+    def num_train_samples(self):
+        return len(self.sevir_train)
+
+    @property
+    def num_val_samples(self):
+        return len(self.sevir_val)
+
+    @property
+    def num_test_samples(self):
+        return len(self.sevir_test)

@@ -21,6 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..utils.device import DeviceLike, resolve_device
 from .common import lecun_normal_
@@ -33,6 +34,17 @@ def _flax_dense_init(module: nn.Module, seed: int) -> None:
             if isinstance(m, nn.Linear):
                 lecun_normal_(m.weight, rng)
                 m.bias.zero_()
+
+
+def _promote(x: torch.Tensor, *params: torch.Tensor):
+    """x and params in their promoted dtype, as jnp promotes a mixed-dtype
+    product: fp32 latents from a bf16 frozen encoder meet bf16 parameters
+    under ``ops/amp.py::mixed_loss``, and the product runs in fp32. A no-op
+    when the dtypes agree."""
+    dt = x.dtype
+    for p in params:
+        dt = torch.promote_types(dt, p.dtype)
+    return [v.to(dt) for v in (x,) + params]
 
 
 def _check_steps(t: int, t_in: int) -> None:
@@ -73,8 +85,9 @@ class PerPixelLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, c, h, w = x.shape
         _check_steps(t, self.t_in)
+        x, weight, bias = _promote(x, self.dense.weight, self.dense.bias)
         feat = x.permute(0, 3, 4, 1, 2).reshape(b, h, w, t * c)
-        out = self.dense(feat).reshape(b, h, w, self.t_out, c)
+        out = F.linear(feat, weight, bias).reshape(b, h, w, self.t_out, c)
         return out.permute(0, 3, 4, 1, 2)
 
 
@@ -144,20 +157,23 @@ class DLinear(nn.Module):
                     lin.bias.copy_(b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        seasonal, trend = series_decomp(x, self.kernel_size)
         if self.individual:
             if x.shape[-1] != self.seasonal_weight.shape[0]:
                 raise ValueError(f"channels={self.seasonal_weight.shape[0]} "
                                  f"!= D={x.shape[-1]}")
-            s = (torch.einsum("btd,dot->bod", seasonal, self.seasonal_weight)
-                 + self.seasonal_bias.T)
-            t = (torch.einsum("btd,dot->bod", trend, self.trend_weight)
-                 + self.trend_bias.T)
+            x, sw, sb, tw, tb = _promote(
+                x, self.seasonal_weight, self.seasonal_bias,
+                self.trend_weight, self.trend_bias)
+            seasonal, trend = series_decomp(x, self.kernel_size)
+            s = torch.einsum("btd,dot->bod", seasonal, sw) + sb.T
+            t = torch.einsum("btd,dot->bod", trend, tw) + tb.T
         else:
-            s = (torch.einsum("btd,ot->bod", seasonal, self.seasonal.weight)
-                 + self.seasonal.bias[:, None])
-            t = (torch.einsum("btd,ot->bod", trend, self.trend.weight)
-                 + self.trend.bias[:, None])
+            x, sw, sb, tw, tb = _promote(
+                x, self.seasonal.weight, self.seasonal.bias,
+                self.trend.weight, self.trend.bias)
+            seasonal, trend = series_decomp(x, self.kernel_size)
+            s = torch.einsum("btd,ot->bod", seasonal, sw) + sb[:, None]
+            t = torch.einsum("btd,ot->bod", trend, tw) + tb[:, None]
         return s + t
 
 

@@ -1,18 +1,22 @@
 """Experiment logging: JSONL scalars, histograms and VIL image panels (+
-optional wandb), a copy of weatherforecastingtoolkit_tpu/training/
-logging.py, which imports no JAX.
+optional wandb), the counterpart of weatherforecastingtoolkit_tpu/training/
+logging.py.
 
 The primary backend is a local JSONL file per run; W&B attaches iff `wandb`
 is importable and WANDB_API_KEY is set in the environment. ``log_images``
-imports matplotlib when it is called, as the JAX module does: where
-matplotlib is absent it raises ImportError.
+colors its panels with numpy (``data/colormap.py``: the VIL palette and
+matplotlib's ``Reds``, the pixels matplotlib's ``imshow`` gives them) and
+writes each as a PNG with the stdlib (``write_png``), so it needs no
+matplotlib.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import struct
 import time
+import zlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -81,14 +85,12 @@ class RunLogger:
 
     def log_images(self, predicted, target, label: str, step: int,
                    batch_idxs: int = 4) -> None:
-        """3xT panels: original / reconstruction / abs diff with the VIL
-        colormap (reference pipeline/helpers.py:155-225). predicted/target:
+        """3xT panels: original / reconstruction / abs diff (reference
+        pipeline/helpers.py:155-225), rows of T frames side by side, the
+        first two in the VIL colormap and the diff in ``Reds`` over
+        [0, 255]; one PNG per sample under media/. predicted/target:
         (B, T, H, W) or (B, T, 1, H, W) in [0, 1]."""
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        from ..data.colormap import vil_cmap
+        from ..data.colormap import reds_rgb, vil_rgb
 
         predicted = np.asarray(predicted)
         target = np.asarray(target)
@@ -104,29 +106,20 @@ class RunLogger:
         tgt = (np.clip(target, 0, 1) * 255).astype(np.uint8)
         prd = (np.clip(predicted, 0, 1) * 255).astype(np.uint8)
         diff = np.abs(tgt.astype(float) - prd.astype(float)).clip(0, 255).astype(np.uint8)
-        b_total, t_total = tgt.shape[:2]
-        cmap, norm, _, _ = vil_cmap()
+        b_total, t_total, h, w = tgt.shape
+
+        def row(rgb):  # (T, H, W, 3) -> (H, T*W, 3)
+            return rgb.transpose(1, 0, 2, 3).reshape(h, t_total * w, 3)
 
         for b in range(min(batch_idxs, b_total)):
-            fig, axes = plt.subplots(3, t_total, figsize=(2 * t_total, 6),
-                                     squeeze=False)
-            for t in range(t_total):
-                for row, (img, kw, title) in enumerate((
-                        (tgt[b, t], dict(cmap=cmap, norm=norm), "orig"),
-                        (prd[b, t], dict(cmap=cmap, norm=norm), "recon"),
-                        (diff[b, t], dict(cmap="Reds", vmin=0, vmax=255), "absdiff"))):
-                    ax = axes[row, t]
-                    ax.imshow(img, **kw)
-                    ax.set_title(f"{title} t={t}", fontsize=6)
-                    ax.axis("off")
-            fig.tight_layout()
+            panel = np.concatenate([row(vil_rgb(tgt[b])), row(vil_rgb(prd[b])),
+                                    row(reds_rgb(diff[b]))], axis=0)
             safe = label.replace("/", "_").replace(" ", "_")
             path = os.path.join(self.run_dir, "media",
                                 f"{safe}_step{step}_b{b}.png")
-            fig.savefig(path, dpi=72)
+            write_png(path, panel)
             if self._wandb is not None:
-                self._wandb.log({label: self._wandb.Image(fig)}, step=step)
-            plt.close(fig)
+                self._wandb.log({label: self._wandb.Image(panel)}, step=step)
 
     def close(self) -> None:
         self._jsonl.close()
@@ -138,3 +131,25 @@ def read_jsonl_metrics(run_dir: str):
     path = os.path.join(run_dir, "metrics.jsonl")
     with open(path) as f:
         return [json.loads(line) for line in f if line.strip()]
+
+
+def write_png(path: str, rgb: np.ndarray) -> str:
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG (no filtering,
+    zlib-compressed), with the stdlib only."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"write_png takes (H, W, 3) uint8, not {rgb.shape}")
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          rgb.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))
+    return path

@@ -397,7 +397,7 @@ class Trainer:
                  log_images: bool = False) -> Dict[str, float]:
         """Mean loss over the validation batches and, for a task with an
         ``eval_fn``, the mean of ``calc_metrics`` over them; with
-        ``log_images`` the first batch's panels (which need matplotlib)."""
+        ``log_images`` the first batch's panels as PNGs."""
         from ..data.prefetch import device_prefetch
         from ..metrics import calc_metrics
 
