@@ -129,13 +129,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      at the registry's default widths (2 x 2 frames, 2 steps each);
  18. in a fresh process (chip_smoke.py --data, run after --zoo), the SEVIR
      data layer: a sevirlr tree (CATALOG.csv of 512 VIL events at 128^2 x
-     25, 480 before the 2019-06-01 split date and 32 after, written with
-     the port's catalog writer; an empty data/vil/; the train and test
-     packed caches built by the port's build_cache from an in-memory
-     stand-in for the HDF5 reader over synthetic_vil_events) and a sevir
+     25, a week apart, 480 up to the 2019-06-01 split date and 32 after;
+     an empty data/vil/; the train and test packed caches), written by
+     data/synthetic.py::make_synthetic_sevir_cache (no HDF5), and a sevir
      tree (32 events at 384^2 x 49); SEVIRDataModule(use_cache=True)
-     validates the caches, builds nothing and serves the in-memory
-     source's bits at the same (event, window); measure_loader samples/s
+     validates the caches, builds nothing and serves the bits of the same
+     events made again in memory at the same (event, window);
+     measure_loader samples/s
      and MB/s, 0 and 4 workers, host batches and through device_prefetch
      onto the card with rescale "01" and "01_uint8";
  19. experiments_gpu/earthformer/train.py's main (in-process) at the
@@ -150,6 +150,39 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      split's metric dict and panel PNGs (written without matplotlib),
      and the first step's loss on the card against the CPU's at
      the same weights, batch and posterior noise (TF32 off, rel 1e-4);
+ 21. in a fresh process (chip_smoke.py --cli DIR, run after --data on the
+     trees and run directories it left in DIR; alone it writes its own),
+     the GroupNorm kernel's two-pass path at vae_sevir384's 384^2 shapes,
+     (25, 64|128, 384, 384) channels_last, fp32 and bf16, SiLU on and
+     off: three kernels a call (CUDA-graph nodes), its bits against the
+     plain version and twice the same, its time in a CUDA graph beside the
+     plain version's, F.group_norm+F.silu's and the bound;
+ 22. experiments_gpu/vae_sevir384/train.py's main on the sevir tree at
+     full width (AutoencoderKL(64, 128, 256, 512), B=1 x 25 frames of
+     384^2, remat, bf16), 6 steps: finite losses every step, ms a step and
+     the device's busy share, peak memory, GroupNorm launches a step on
+     the cluster and the two-pass path, the forward's GroupNorm kernel
+     times per call shape and the GroupNorm backward's device time a step
+     (the plain version's autograd, in both generator backward passes);
+ 23. vae_gan_kl at its config's widths on the sevirlr tree (4 steps, 36
+     GroupNorm launches a step), its first step's losses (rel 1e-4) and
+     adaptive weight and gradient norm (rel 1e-2) on the card against the
+     CPU's on 4 frames of its first batch, the same weights and posterior
+     noise;
+     ae_gan (PosAwareAE 2048) for 4 steps;
+ 24. latent_convae (plain and with the latent PatchGAN), latent_convattn
+     and mlp_intensity at their configs' widths, 4 steps each: finite
+     losses, the frozen encode's GroupNorm launches a step (14, 14, 12,
+     0); latent_convattn's first loss card vs CPU (rel 1e-4);
+ 25. evaluate.py --ensemble 2 on phase 20's latent_dlinear run directory
+     (the model/persistence table, the calibration and CRPS); sweep.py
+     over two mlp_intensity runs, the first failing once after training,
+     retried with --resume true into the same run directory;
+ 26. quality_runs.py per model at --steps 100 --steps-ae 100 (win counts;
+     one stencil launch a training step in Earthformer's, none in
+     token_vit's or AlphaPre's, whose recipe has no prior); 26b.
+     demo_path_b.py at its defaults (64^2, 300 + 300 steps, the panel PNG)
+     and with --forecaster earthformer (one stencil launch a step);
  and, after phase 9, the int8 modes' gradients on the card against the
  CPU's (rel 1e-5).
 The kernels build in parallel (one nvcc per source). fp32 runs with TF32
@@ -2400,9 +2433,10 @@ def profile_phase():
 
 
 # ----------------------------------------------------- 18.-20. the data slice
-# sevirlr tree: 480 train events before the 2019-06-01 split date and 32
-# after, 3 hours apart; sevir tree: 28 + 4 events at 384^2 x 49
+# sevirlr tree: 480 train events up to the 2019-06-01 split date and 32
+# after, a week apart; sevir tree: 28 + 4 events at 384^2 x 49
 DATA_TREES = {"sevirlr": (480, 32), "sevir": (28, 4)}
+DATA_SEEDS = {"sevirlr": 21, "sevir": 22}
 DATA_SPLIT = (2019, 6, 1)
 LOADER_BATCH = 4
 LOADER_BATCHES = {"sevirlr": 40, "sevir": 15}
@@ -2413,74 +2447,38 @@ LATENT_SCRIPT = os.path.join(REPO, "experiments_gpu", "latent_dlinear",
 EF_CLI_STEPS, LATENT_CLI_STEPS = (40, 5, 20), (20, 4, 12)
 
 
-class MemoryReader:
-    """SEVIRReader.read_window's contract over in-memory (H, W, T) uint8
-    VIL events keyed by event id: the stand-in for the HDF5 files, which
-    this phase never writes, so it needs no h5py."""
-
-    def __init__(self, events):
-        self.events = events
-
-    def read_window(self, event, img_type, t_slice=slice(None)):
-        if img_type != "vil":
-            raise KeyError(img_type)
-        arr = self.events[event.event_id]
-        if t_slice.stop is not None and t_slice.stop > arr.shape[-1]:
-            raise IndexError(f"window {t_slice} exceeds {arr.shape[-1]}")
-        return arr[:, :, t_slice]
-
-
-def vil_events(n, hw, t, seed):
-    """n synthetic_vil_events fields, made in 8 threads of chunks."""
-    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
-        synthetic_vil_events)
-
-    chunks = [(i, min(n, i + 16)) for i in range(0, n, 16)]
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        parts = list(pool.map(lambda c: synthetic_vil_events(
-            c[1] - c[0], hw, hw, t, seed=seed + c[0]), chunks))
-    return np.concatenate(parts)
-
-
-def write_sevir_tree(root, preset, seed):
-    """A SEVIR tree of `preset` under root: CATALOG.csv (written with the
-    port's catalog writer), an empty data/vil/, and the packed caches of the
-    train and test splits, built by the port's build_cache from the
-    in-memory events. Returns the reader over those events."""
+def tree_events(preset):
+    """make_synthetic_sevir_cache's event arguments for the preset's tree:
+    the preset's frames, n_train events up to the split date (the last one
+    on it) and n_test after it, a week apart."""
     import datetime
 
-    from weatherforecastingtoolkit_tpu_torch.data.cache import build_cache
-    from weatherforecastingtoolkit_tpu_torch.data.catalog import (
-        build_event_index, write_catalog)
     from weatherforecastingtoolkit_tpu_torch.data.constants import (
         DATASET_PRESETS)
-    from weatherforecastingtoolkit_tpu_torch.data.dataset import SEVIRDataset
 
     p = DATASET_PRESETS[preset]
     n_train, n_test = DATA_TREES[preset]
-    n = n_train + n_test
-    events = vil_events(n, p["img_height"], p["raw_seq_len"], seed)
-    split = datetime.datetime(*DATA_SPLIT)
-    hours = [-3 * (n_train - i) for i in range(n_train)] + \
-        [3 * (j + 1) for j in range(n_test)]
-    ids = [f"S{800000 + i}" for i in range(n)]
-    rows = [dict(id=ids[i], file_name=f"vil/SEVIR_VIL_CHIP_{i // 32:04d}.h5",
-                 file_index=i % 32, img_type="vil",
-                 time_utc=split + datetime.timedelta(hours=hours[i]),
-                 pct_missing=0.0) for i in range(n)]
-    os.makedirs(os.path.join(root, "data", "vil"))
-    catalog = write_catalog(os.path.join(root, "CATALOG.csv"), rows)
-    reader = MemoryReader(dict(zip(ids, events)))
-    for tag, start, end in (("train", None, split), ("test", split, None)):
-        index = build_event_index(catalog, ("vil",), start, end)
-        ds = SEVIRDataset(catalog=index, data_dir=os.path.join(root, "data"),
-                          seq_len=p["raw_seq_len"],
-                          raw_seq_len=p["raw_seq_len"],
-                          stride=p["raw_seq_len"], layout="NTCHW")
-        ds.reader = reader
-        build_cache(ds, os.path.join(root, "cache_packed"), split=tag,
-                    verbose=False)
-    return reader, events.nbytes
+    start = datetime.date(*DATA_SPLIT) - datetime.timedelta(weeks=n_train - 1)
+    return dict(num_events=n_train + n_test, height=p["img_height"],
+                width=p["img_width"], raw_seq_len=p["raw_seq_len"],
+                seed=DATA_SEEDS[preset], start_date=start.isoformat())
+
+
+def write_tree(root, preset):
+    """The preset's SEVIR tree under root, as the port writes one where no
+    HDF5 can be read (data/synthetic.py::make_synthetic_sevir_cache):
+    CATALOG.csv, an empty data/vil/ and the packed caches of the train and
+    test splits. Returns the events' bytes."""
+    from weatherforecastingtoolkit_tpu_torch.data.datamodule import (
+        SEVIRDataModule)
+    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
+        make_synthetic_sevir_cache)
+
+    ev = tree_events(preset)
+    dm = SEVIRDataModule(dataset_name=preset, sevir_dir=root,
+                         train_test_split_date=DATA_SPLIT, use_cache=True)
+    make_synthetic_sevir_cache(root, dm.split_dates(), **ev)
+    return ev["num_events"] * ev["height"] * ev["width"] * ev["raw_seq_len"]
 
 
 def cached_datamodule(root, preset, **kw):
@@ -2511,19 +2509,27 @@ def data_loader_phase(tmp):
     from weatherforecastingtoolkit_tpu_torch.data.prefetch import (
         BatchLoader, device_prefetch)
 
+    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
+        EventReader, synthetic_sevir_events)
+
     roots = {}
-    for preset, seed in (("sevirlr", 21), ("sevir", 22)):
+    for preset in DATA_TREES:
         root = os.path.join(tmp, preset)
         t0 = time.perf_counter()
-        reader, nbytes = write_sevir_tree(root, preset, seed)
+        nbytes = write_tree(root, preset)
         n_train, n_test = DATA_TREES[preset]
         log(f"phase 18: {preset} tree, {n_train} + {n_test} VIL events "
             f"({nbytes / 1e6:.1f} MB uint8), catalog and packed caches "
-            f"written in {time.perf_counter() - t0:.2f} s")
+            f"written in {time.perf_counter() - t0:.2f} s "
+            f"(make_synthetic_sevir_cache)")
+        ev = tree_events(preset)
+        reader = EventReader(synthetic_sevir_events(
+            ev["num_events"], ev["height"], ev["width"], ev["raw_seq_len"],
+            seed=ev["seed"]))
         dm = cached_datamodule(root, preset, batch_size=LOADER_BATCH,
                                num_workers=4, seed=0)
-        # the in-memory source through the HDF5 dataset's code, built as the
-        # data module's _make builds the train split
+        # the events, made again in memory, through the HDF5 dataset's code,
+        # built as the data module's _make builds the train split
         ref = SEVIRDataset(
             catalog=dm.catalog_path, data_dir=dm.raw_data_dir, seq_len=25,
             raw_seq_len=dm.raw_seq_len, stride=12, layout="NTCHW",
@@ -2582,19 +2588,38 @@ class StepProbe:
     trainer, the host time of steps [t0, t1) (no profiler) with the host
     time spent between steps (fetching, pinning and copying the next batch,
     logging), and a torch.profiler window (CUDA activity only) over steps
-    [t1, n_steps)."""
+    [t1, n_steps), in which CUDA events also bracket each GroupNorm backward
+    (GroupNormSiLUFunction.backward, the plain version's autograd)."""
 
     def __init__(self, t0, t1, n_steps):
         self.t0, self.t1, self.n_steps = t0, t1, n_steps
         self.steps, self.batches, self.deltas, self.gaps = 0, [], [], []
+        self.losses, self.gn_bwd_events = [], []
         self.marks, self.prof, self.first, self.last_end = {}, None, None, None
 
     def __enter__(self):
+        import torch
+
+        from weatherforecastingtoolkit_tpu_torch.ops.cuda.groupnorm import (
+            GroupNormSiLUFunction)
         from weatherforecastingtoolkit_tpu_torch.training.trainer import (
             Trainer)
 
         self.cls, self.orig = Trainer, Trainer._train_step
+        self.gn_fn, self.gn_bwd = GroupNormSiLUFunction, \
+            GroupNormSiLUFunction.backward
         probe = self
+
+        def gn_backward(ctx, g):
+            if probe.prof is None or probe.steps >= probe.n_steps:
+                return probe.gn_bwd(ctx, g)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = probe.gn_bwd(ctx, g)
+            end.record()
+            probe.gn_bwd_events.append((start, end))
+            return out
 
         def step(tr, state, batch):
             probe.before(tr, state)
@@ -2603,6 +2628,7 @@ class StepProbe:
             probe.deltas.append(tuple(b - a for a, b in
                                       zip(counts, probe.counts())))
             probe.batches.append(batch)
+            probe.losses.append(out[1]["loss"].detach())
             if probe.first is None:
                 probe.first = (tr, int(state.step) - 1,
                                out[1]["loss"].detach().clone())
@@ -2610,17 +2636,29 @@ class StepProbe:
             return out
 
         Trainer._train_step = step
+        GroupNormSiLUFunction.backward = staticmethod(gn_backward)
         return self
 
     def __exit__(self, *exc):
         self.cls._train_step = self.orig
+        self.gn_fn.backward = staticmethod(self.gn_bwd)
+
+    def gn_backward_ms(self):
+        """(device ms a profiled step between the CUDA events around each
+        GroupNorm backward, GroupNorm backwards a step)."""
+        n = self.n_steps - self.t1
+        return (sum(s.elapsed_time(e) for s, e in self.gn_bwd_events) / n,
+                len(self.gn_bwd_events) / n)
 
     @staticmethod
     def counts():
+        """(GroupNorm launches, stencil launches, GroupNorm launches on the
+        two-pass path)."""
         from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
         from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
 
-        return groupnorm.launches, stencil.launches
+        return (groupnorm.launches, stencil.launches,
+                groupnorm.two_pass_launches)
 
     def before(self, tr, state):
         import torch
@@ -2757,10 +2795,10 @@ def cli_earthformer_phase(tree, tmp):
     per_step = sorted(set(probe.deltas))
     log(f"  main: {probe.steps} steps from step {probe.start_step}, the "
         f"test split and the checkpoint in {time.perf_counter() - start:.2f}"
-        f" s; launches a step {per_step} (GroupNorm, stencil), "
-        f"{total[1]} stencil launches in the run (steps and test batches), "
+        f" s; launches a step {per_step} (GroupNorm, stencil, two-pass "
+        f"GroupNorm), {total[1]} stencil launches in the run (steps and test batches), "
         f"GroupNorm {total[0]}; first loss {float(probe.first[2]):.5f}")
-    if per_step != [(0, 1)] or probe.start_step != 0:
+    if per_step != [(0, 1, 0)] or probe.start_step != 0:
         raise AssertionError(f"launches a step {per_step}, start "
                              f"{probe.start_step}")
     metrics = test_metrics(tr.run_dir)
@@ -2822,9 +2860,10 @@ def latent_cli_phase(tree, tmp):
     per_step = sorted(set(probe.deltas))
     log(f"  main: {probe.steps} steps, the test split and the checkpoint "
         f"in {time.perf_counter() - start:.2f} s; launches a step {per_step} "
-        f"(GroupNorm, stencil); {total[0]} GroupNorm launches in the run "
+        f"(GroupNorm, stencil, two-pass GroupNorm); {total[0]} GroupNorm "
+        f"launches in the run "
         f"(steps, and the test split's encodes and decodes)")
-    if per_step != [(16, 0)]:
+    if per_step != [(16, 0, 0)]:
         raise AssertionError(f"GroupNorm launches a step {per_step}, "
                              "expected 16 (the frozen encoder's)")
     fed = probe.report()
@@ -2848,20 +2887,10 @@ def latent_cli_phase(tree, tmp):
     # config's seeds on each device, the run's first batch, and the
     # posterior's noise drawn once on the CPU for both devices
     cfg = tr.cfg.merge({"experiment_path": os.path.join(tmp, "vs_cpu")})
-    noise = {}
-
-    def sample(self, generator=None):
-        key = tuple(self.mean.shape)
-        if key not in noise:
-            noise[key] = torch.randn(key, generator=torch.Generator()
-                                     .manual_seed(0))
-        return self.mean + self.std * noise[key].to(self.mean.device,
-                                                    self.mean.dtype)
-
     batch = probe.batches[0]
     losses = {}
     orig = distributions.DiagonalGaussianDistribution.sample
-    distributions.DiagonalGaussianDistribution.sample = sample
+    distributions.DiagonalGaussianDistribution.sample = shared_noise()
     try:
         for device in ("cuda", "cpu"):
             tick = time.perf_counter()
@@ -2913,14 +2942,540 @@ def data_phase():
         for fut in [pool.submit(k.build) for k in (groupnorm, stencil)]:
             fut.result()
     t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    # a directory given on the command line keeps the trees and the run
+    # directories for the --cli process; else they go with this process
+    keep = sys.argv[2] if len(sys.argv) > 2 else None
+    tmp = keep or tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
         tree = data_loader_phase(tmp)
         cli_earthformer_phase(tree, tmp)
         latent_cli_phase(tree, tmp)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if keep is None:
+            shutil.rmtree(tmp, ignore_errors=True)
     log(f"phases 18-20: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+# ------------------------------------------- 21.-26b. the remaining commands
+EXP_GPU = os.path.join(REPO, "experiments_gpu")
+# (N, C, H, W) of vae_sevir384's GroupNorms that take the two-pass path
+GN_TWO_PASS_SHAPES = [(25, 64, 384, 384), (25, 128, 384, 384)]
+SEVIR384_VAE = dict(in_channels=1, out_channels=1,
+                    block_out_channels=(64, 128, 256, 512),
+                    layers_per_block=1, latent_channels=4, norm_num_groups=32)
+VAE_GAN_KL_VAE = dict(SEVIR384_VAE, latent_channels=64)
+# (GroupNorm launches, of them on the two-pass path) of a vae_sevir384 step
+SEVIR384_GN_LAUNCHES = (104, 19)
+# (steps, first timed step, first profiled step) of the command-line runs
+SEVIR384_STEPS, GAN_CLI_STEPS, LATENT_AE_STEPS = (6, 2, 4), (4, 1, 3), (4, 1, 3)
+# the card-vs-CPU checks' loss tolerance (phases 23-24)
+CLI_CPU_RTOL = 1e-4
+# the GAN runs' discriminator from the first step: the config's disc_start
+# (a quarter of the epoch's steps) would keep it off in a short run
+GAN_FROM_START = "lpips.disc_start=0"
+# quality_runs.py's steps (its defaults: 1500 and 4000), cut to fit the
+# process's time
+QUALITY_ARGS = ["--steps", "100", "--steps-ae", "100"]
+# the frames of vae_gan_kl's first batch that its card-vs-CPU step takes
+# (the CPU's step at full width costs about 1.6 s a frame)
+VAE_GAN_CPU_FRAMES = 4
+
+
+def cli_argv(tree, out, steps, *extra):
+    """Overrides of a short command-line run on a tree's packed caches:
+    `steps` training steps, one validation batch, a checkpoint at the end."""
+    return [f"dataset.sevir_dir={tree}", "dataset.use_cache=true",
+            f"trainer.limit_train_batches={steps}", "trainer.max_epochs=1",
+            "trainer.limit_val_batches=1", "trainer.save_every_n_steps=10.0",
+            *extra, f"experiment_path={out}"]
+
+
+def shared_noise():
+    """A posterior sample() that takes one CPU-drawn noise per shape, for
+    card-vs-CPU checks; restore DiagonalGaussianDistribution.sample after."""
+    import torch
+
+    noise = {}
+
+    def sample(self, generator=None):
+        key = tuple(self.mean.shape)
+        if key not in noise:
+            noise[key] = torch.randn(key, generator=torch.Generator()
+                                     .manual_seed(len(noise)))
+        return self.mean + self.std * noise[key].to(self.mean.device,
+                                                    self.mean.dtype)
+
+    return sample
+
+
+def first_step_vs_cpu(mod, cfg, batch, keys, rtol):
+    """One training step of mod's task on cuda and on the CPU from the
+    config's seeds (the same weights), the same batch and posterior noise:
+    {key: (card, cpu)} of the step's aux, each within rtol[key]."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.data.prefetch import to_device
+    from weatherforecastingtoolkit_tpu_torch.models.vae import distributions
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+
+    got = {}
+    orig = distributions.DiagonalGaussianDistribution.sample
+    distributions.DiagonalGaussianDistribution.sample = shared_noise()
+    try:
+        for device in ("cuda", "cpu"):
+            tick = time.perf_counter()
+            task = mod.build_task(cfg, None, device=device)
+            trainer = Trainer(cfg, task, device=device)
+            state = trainer.init_state()
+            _, aux = trainer._train_step(state, to_device(batch,
+                                                          trainer.device))
+            got[device] = {k: float(aux[k]) for k in keys}
+            trainer.close()
+            log(f"    first step on {device} ({time.perf_counter() - tick:.1f}"
+                " s): " + ", ".join(f"{k} {v:.8g}" for k, v in
+                                    got[device].items()))
+            del task, trainer, state
+    finally:
+        distributions.DiagonalGaussianDistribution.sample = orig
+    out = {k: (got["cuda"][k], got["cpu"][k]) for k in keys}
+    log("    card vs CPU, same weights, batch and noise (TF32 off): " + ", ".join(
+        f"{k} rel {abs(a - b) / max(abs(b), 1e-30):.3g} (tol {rtol[k]:g})"
+        for k, (a, b) in out.items()))
+    for k, (a, b) in out.items():
+        if not abs(a - b) <= rtol[k] * abs(b) + 1e-7:
+            raise AssertionError(f"card vs CPU {k}: {a} vs {b}")
+    return out
+
+
+def run_probed(script, argv, steps, title):
+    """`script`'s main in this process under a StepProbe: finite losses on
+    every step; returns (probe, module, launches a step)."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
+
+    n, t0, t1 = steps
+    log(f"{title}: python {os.path.relpath(script, REPO)} "
+        f"{' '.join(argv[:-1])} (in this process)")
+    probe = StepProbe(t0, t1, n)
+    groupnorm.launches = stencil.launches = groupnorm.two_pass_launches = 0
+    start = time.perf_counter()
+    with probe:
+        mod = run_cli(script, argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    losses = [float(v) for v in probe.losses]
+    if probe.steps != n or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{probe.steps} steps, losses {losses}")
+    per_step = sorted(set(probe.deltas))
+    log(f"  {n} steps, validation and checkpoint in {seconds:.2f} s; losses "
+        + ", ".join(f"{v:.5g}" for v in losses) + f" (all finite); launches "
+        f"a step {per_step} (GroupNorm, stencil, two-pass GroupNorm)")
+    if len(per_step) != 1:
+        raise AssertionError(f"launches differ between steps: {per_step}")
+    return probe, mod, per_step[0]
+
+
+def log_probe(title, probe):
+    plain, wall, busy, kernels, gap, kernel_ms, top = probe.report()
+    log(f"  {title}: {plain:.2f} ms a step over steps {probe.t0}-"
+        f"{probe.t1 - 1} (no profiler; {gap:.2f} ms on the host between "
+        f"steps), {wall:.2f} ms under the profiler, device busy {busy:.0%} "
+        f"({kernel_ms:.2f} ms of kernels), {kernels:.0f} kernels a step; "
+        "top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+    return plain, busy, kernel_ms
+
+
+def gn_two_pass_phase():
+    """Phase 21: the GroupNorm kernel's two-pass path at vae_sevir384's
+    384^2 shapes: three kernels a call, its bits against the plain version
+    (twice the same), its time beside the plain version's, the library's
+    and the bound."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+
+    log("phase 21: the GroupNorm kernel's two-pass path at vae_sevir384's "
+        "call shapes (fp32 atol 1e-4; bf16 1 ulp + 1e-4; channels_last)")
+    for i, shape in enumerate(GN_TWO_PASS_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, s, b = gn_inputs(shape, dtype, True, seed=2100 + i)
+            before = groupnorm.two_pass_launches
+            kinds = graph_kernels(lambda: groupnorm.group_norm_silu_cuda(
+                x, s, b, 32, 1e-6, True))
+            taken = groupnorm.two_pass_launches - before
+            log(f"  N={shape[0]} C={shape[1]} {shape[2]}x{shape[3]} "
+                f"{str(dtype)[6:]}: two-pass path on {taken} of 2 calls, "
+                f"{kinds.count(0)} kernels a call (CUDA-graph nodes {kinds})")
+            if taken != 2 or kinds.count(0) != 3:
+                raise AssertionError(f"{shape} {dtype}: {taken} two-pass "
+                                     f"calls, graph nodes {kinds}")
+            del x
+    calls = collections.Counter({
+        (shape, dtype, True, 32, 1e-6, silu): 1
+        for shape in GN_TWO_PASS_SHAPES
+        for dtype in (torch.float32, torch.bfloat16) for silu in (True, False)})
+    torch.cuda.empty_cache()
+    return time_gn_calls(calls, "  two-pass path, one call each")
+
+
+def gn_backward_ms(calls):
+    """Device ms of the plain version's autograd (the GN backward) at each
+    call shape of `calls`, summed over the counts."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda.groupnorm import (
+        GroupNormSiLUFunction)
+
+    total = 0.0
+    for i, ((shape, dtype, cl, groups, eps, silu), count) in enumerate(
+            sorted(calls.items(), key=lambda kv: -np.prod(kv[0][0]))):
+        x, sc, bi = gn_inputs(shape, dtype, cl, seed=2200 + i)
+        leaves = [t.to(dtype).requires_grad_() for t in (x, sc, bi)]
+        y = GroupNormSiLUFunction.apply(*leaves, groups, eps, silu)
+        g = torch.randn(y.shape, device="cuda").to(dtype)
+        ms = profile_step(lambda: torch.autograd.grad(
+            y, leaves, g, retain_graph=True), 1)[0]
+        total += count * ms
+        log(f"    {count:2d} x {shape} {str(dtype)[6:]}: backward {ms:.4f} "
+            "ms device time")
+        del x, y, g, leaves
+        torch.cuda.empty_cache()
+    return total
+
+
+def sevir384_phase(trees, tmp):
+    """Phase 22: experiments_gpu/vae_sevir384/train.py on the sevir tree,
+    B=1 x 25 frames of 384^2, remat, bf16: the two-pass GroupNorms inside a
+    training step."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+
+    torch.cuda.reset_peak_memory_stats()
+    probe, _, (gn, _, two_pass) = run_probed(
+        os.path.join(EXP_GPU, "vae_sevir384", "train.py"),
+        cli_argv(trees["sevir"], os.path.join(tmp, "sevir384"),
+                 SEVIR384_STEPS[0], GAN_FROM_START), SEVIR384_STEPS,
+        "phase 22: vae_sevir384 at full width (AutoencoderKL(64, 128, 256, "
+        "512), B=1 x 25 frames of 384^2, remat, bf16, kl_weight 1e-6)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms, busy, kernel_ms = log_probe("vae_sevir384 step", probe)
+    in_step, n_bwd = probe.gn_backward_ms()
+    log(f"  peak memory {peak:.2f} GiB; GroupNorm launches a step {gn}: "
+        f"{gn - two_pass} on the cluster path, {two_pass} on the two-pass "
+        "path (one a GroupNormSiLU forward, recomputed blocks included)")
+    # 36 forward calls, and 34 again in each of the two generator backward
+    # passes (every down, mid and up block recomputes; the encoder's and the
+    # decoder's conv_norm_out do not); 7 of the 36 are at C=64|128 on 384^2,
+    # 6 of them inside blocks
+    if (gn, two_pass) != SEVIR384_GN_LAUNCHES:
+        raise AssertionError(f"{gn} GroupNorm launches a step, {two_pass} "
+                             f"two-pass: expected {SEVIR384_GN_LAUNCHES}")
+    # the forward's GroupNorm calls (bf16 compute) and their backward, the
+    # plain version's autograd, once in each of the step's two generator
+    # backward passes
+    vae = AutoencoderKL(**SEVIR384_VAE, seed=0).to(torch.bfloat16)
+    frames = torch.rand(25, 1, 384, 384, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        calls = record_gn_calls(vae, lambda: vae(frames))
+    del vae, frames
+    torch.cuda.empty_cache()
+    tot, _ = time_gn_calls(calls, f"  vae_sevir384's forward GroupNorms "
+                                  f"({sum(calls.values())} a forward)")
+    bwd = 2 * gn_backward_ms(calls)
+    log(f"  per step: GN backward (plain autograd) measured in the profiled "
+        f"steps {probe.t1}-{probe.n_steps - 1} (CUDA events around each of "
+        f"its {n_bwd:.0f} GroupNormSiLUFunction.backward calls a step) "
+        f"{in_step:.2f} ms, {in_step / kernel_ms:.1%} of the step's "
+        f"{kernel_ms:.2f} ms of kernels; the same estimated from one "
+        f"backward at each forward call shape alone, x2 (two generator "
+        f"backward passes) {bwd:.2f} ms; the GN forward kernel "
+        f"{tot['ms']:.2f} ms a forward (bound {tot['bound_ms']:.2f} ms, "
+        f"F.group_norm+F.silu {tot['library_ms']:.2f} ms); the step "
+        f"{ms:.2f} ms, {busy:.0%} busy")
+    if n_bwd != 2 * sum(calls.values()):
+        raise AssertionError(f"{n_bwd} GroupNorm backwards a step, expected "
+                             f"{2 * sum(calls.values())}")
+
+
+def vae_gan_phase(trees, tmp):
+    """Phase 23: vae_gan_kl at its config's widths on the sevirlr tree: the
+    GN kernel against its plain version at every GroupNorm call shape of
+    the run's B x T frames, its first step card vs CPU; ae_gan (PosAwareAE
+    2048) for 4 steps."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+
+    probe, mod, (gn, _, two_pass) = run_probed(
+        os.path.join(EXP_GPU, "vae_gan_kl", "train.py"),
+        cli_argv(trees["sevirlr"], os.path.join(tmp, "vae_gan_kl"),
+                 GAN_CLI_STEPS[0], GAN_FROM_START), GAN_CLI_STEPS,
+        "phase 23: vae_gan_kl (AutoencoderKL(64, 128, 256, 512) at 128^2, "
+        "B=4 x 13, fp32, TF32 off)")
+    log_probe("vae_gan_kl step", probe)
+    if gn != 36 or two_pass:
+        raise AssertionError(f"{gn} GroupNorm launches a step ({two_pass} "
+                             "two-pass), expected 36 on the cluster path")
+    vil = probe.batches[0]["vil"]
+    frames = vil.reshape((-1,) + tuple(vil.shape[2:])).float()
+    vae = AutoencoderKL(**VAE_GAN_KL_VAE, seed=0, device="cuda")
+    with torch.no_grad():
+        calls = record_gn_calls(vae, lambda: vae(frames))
+    del vae
+    torch.cuda.empty_cache()
+    if sum(calls.values()) != gn or len({k[0][0] for k in calls}) != 1:
+        raise AssertionError(f"GroupNorm calls of a forward: {calls}")
+    time_gn_calls(calls, f"  vae_gan_kl's forward GroupNorms at the run's "
+                         f"N = B x T = {frames.shape[0]}, fp32 "
+                         f"({sum(calls.values())} a forward)")
+    batch = {k: v[:1, :VAE_GAN_CPU_FRAMES] for k, v in
+             probe.batches[0].items()}
+    cfg = probe.first[0].cfg.merge({
+        "experiment_path": os.path.join(tmp, "vae_gan_kl_cpu")})
+    log(f"  the first step on the first {VAE_GAN_CPU_FRAMES} frames of its "
+        "first batch (N=4; the kernel at the run's N=52 is checked above), "
+        "card vs CPU:")
+    first_step_vs_cpu(mod, cfg, batch, list(GAN_CPU_RTOL), GAN_CPU_RTOL)
+    probe, _, _ = run_probed(
+        os.path.join(EXP_GPU, "ae_gan", "train.py"),
+        cli_argv(trees["sevirlr"], os.path.join(tmp, "ae_gan"),
+                 GAN_CLI_STEPS[0], GAN_FROM_START), GAN_CLI_STEPS,
+        "  ae_gan (PosAwareAE(latent_dim=2048) + PatchGAN, B=4 x 13, fp32)")
+    log_probe("ae_gan step", probe)
+
+
+def latent_ae_phase(trees, tmp):
+    """Phase 24: latent_convae (plain and with the latent PatchGAN),
+    latent_convattn and mlp_intensity at their configs' widths; the frozen
+    encode's GroupNorm launches; latent_convattn's first loss card vs CPU."""
+    runs = (("latent_convae", [], 14),
+            ("latent_convae", ["lpips.enabled=true", GAN_FROM_START], 14),
+            ("latent_convattn", [], 12), ("mlp_intensity", [], 0))
+    for name, extra, want_gn in runs:
+        probe, mod, (gn, st, _) = run_probed(
+            os.path.join(EXP_GPU, name, "train.py"),
+            cli_argv(trees["sevirlr"], os.path.join(tmp, name + str(len(extra))),
+                     LATENT_AE_STEPS[0], *extra), LATENT_AE_STEPS,
+            f"phase 24: {name}{' ' + ' '.join(extra) if extra else ''}")
+        log_probe(f"{name} step", probe)
+        log(f"  GroupNorm launches a step {gn} (the frozen VAE's encode: "
+            f"{want_gn})")
+        if gn != want_gn or st:
+            raise AssertionError(f"{name}: {gn} GroupNorm, {st} stencil "
+                                 "launches a step")
+        if name == "latent_convattn":
+            cfg = probe.first[0].cfg.merge({
+                "experiment_path": os.path.join(tmp, "convattn_cpu")})
+            first_step_vs_cpu(mod, cfg, probe.batches[0], ["loss"],
+                              {"loss": CLI_CPU_RTOL})
+
+
+def latent_run_dir(trees, tmp):
+    """Phase 20's latent_dlinear run directory, else that of a new 4-step
+    run on the sevirlr tree."""
+    import glob
+
+    runs = sorted(glob.glob(os.path.join(
+        tmp, "latent_cli", "outputs", "latent_dlinear", "runs", "run-*")))
+    if runs:
+        return runs[-1]
+    out = os.path.join(tmp, "latent_cli_short")
+    run_cli(LATENT_SCRIPT, cli_argv(trees["sevirlr"], out, 4))
+    return sorted(glob.glob(os.path.join(
+        out, "outputs", "latent_dlinear", "runs", "run-*")))[-1]
+
+
+FAIL_ONCE = """import os, runpy, sys
+sys.argv[0] = {script!r}
+runpy.run_path(sys.argv[0], run_name="__main__")
+if not os.path.exists({marker!r}):
+    open({marker!r}, "w").close()
+    sys.exit(3)
+"""
+
+
+def evaluate_sweep_phase(trees, tmp):
+    """Phase 25: evaluate.py with --ensemble 2 on a latent_dlinear run
+    directory; sweep.py over two mlp_intensity runs, the first made to fail
+    once after it trained, which resumes."""
+    import glob
+    import importlib.util
+
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
+
+    def load(path, name):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    run_dir = latent_run_dir(trees, tmp)
+    ev = load(os.path.join(EXP_GPU, "evaluate.py"), "chip_smoke_evaluate")
+    fresh = DLinear(13, 12, kernel_size=25, channels=64 * 8 * 8)
+    trained = ev.load_forecaster(DLinear(13, 12, kernel_size=25,
+                                         channels=64 * 8 * 8), run_dir)
+    with torch.no_grad():
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(trained.parameters(), fresh.parameters()))
+    argv = ["--config", os.path.join(REPO, "experiments", "latent_dlinear",
+                                     "config.yaml"),
+            "--run-dir", run_dir, "--ensemble", "2", "--max-batches", "4",
+            f"dataset.sevir_dir={trees['sevirlr']}", "dataset.use_cache=true",
+            f"experiment_path={os.path.join(tmp, 'evaluate')}"]
+    log(f"phase 25: python experiments_gpu/evaluate.py {' '.join(argv)} "
+        f"(in this process; the run's forecaster moved {moved:.3g} from "
+        "its init)")
+    start = time.perf_counter()
+    out = ev.main(argv)
+    log(f"  evaluate.py in {time.perf_counter() - start:.2f} s")
+    for part in ("model", "persistence"):
+        if not all(np.isfinite(list(out[part].values()))):
+            raise AssertionError(f"evaluate {part}: {out[part]}")
+    if not (np.isfinite(out["ensemble"]["crps_ensemble"])
+            and moved > 0):
+        raise AssertionError(f"ensemble {out['ensemble']}, moved {moved}")
+    torch.cuda.empty_cache()
+
+    sw = load(os.path.join(EXP_GPU, "sweep.py"), "chip_smoke_sweep")
+    wrapper = os.path.join(tmp, "mlp_fail_once.py")
+    marker = os.path.join(tmp, "mlp_failed_once")
+    with open(wrapper, "w") as f:
+        f.write(FAIL_ONCE.format(script=os.path.join(
+            EXP_GPU, "mlp_intensity", "train.py"), marker=marker))
+    common = " ".join(cli_argv(trees["sevirlr"], "-", 4)[:-1])
+    paths = [os.path.join(tmp, f"sweep_{i}") for i in range(2)]
+    argv = [wrapper, "--runs", *(f"{common} experiment_path={p}"
+                                 for p in paths)]
+    log(f"  python experiments_gpu/sweep.py {' '.join(argv)} (the first run "
+        "exits 3 once, after training and its checkpoint)")
+    start = time.perf_counter()
+    failed = sw.main(argv)
+    runs = [glob.glob(os.path.join(p, "outputs", "mlp_intensity", "runs",
+                                   "run-*")) for p in paths]
+    log(f"  sweep.py in {time.perf_counter() - start:.2f} s: failed runs "
+        f"{failed}, run directories {[len(r) for r in runs]} (the retry "
+        "resumed the first run's directory)")
+    if failed or [len(r) for r in runs] != [1, 1] or not os.path.exists(marker):
+        raise AssertionError(f"sweep: failed {failed}, runs {runs}")
+
+
+def quality_phase():
+    """Phase 26: quality_runs.py per model at cut steps: the win counts and
+    one stencil launch a training step in Earthformer's."""
+    import importlib.util
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_quality", os.path.join(EXP_GPU, "quality_runs.py"))
+    q = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(q)
+    steps = int(QUALITY_ARGS[1])
+    for model, want in (("earthformer", steps), ("token_vit", 0),
+                        ("alphapre", 0)):
+        argv = ["--model", model] + QUALITY_ARGS
+        log(f"phase 26: python experiments_gpu/quality_runs.py "
+            f"{' '.join(argv)} (otherwise its defaults: 64 events at 64^2, "
+            "B=8, 8 -> 5 frames)")
+        stencil.launches = groupnorm.launches = 0
+        start = time.perf_counter()
+        wins = q.main(argv)[model]
+        log(f"  {model}: {wins}/5 wins in {time.perf_counter() - start:.2f} "
+            f"s; stencil launches {stencil.launches} ({want} expected: "
+            f"{'one a training step' if want else 'no prior in its recipe'})")
+        if stencil.launches != want:
+            raise AssertionError(f"{model}: {stencil.launches} stencil "
+                                 "launches")
+
+
+def demo_phase(tmp):
+    """Phase 26b: demo_path_b.py at its defaults with the panel, then its
+    Earthformer branch (one stencil launch a step)."""
+    import importlib.util
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_demo", os.path.join(EXP_GPU, "demo_path_b.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    panel = os.path.join(tmp, "demo_panel.png")
+    for argv, want in ((["--save-panel", panel], None),
+                       (["--forecaster", "earthformer"], 300)):
+        log(f"phase 26b: python experiments_gpu/demo_path_b.py "
+            f"{' '.join(argv)} (defaults: 64 events at 64^2, 300 + 300 "
+            "steps)")
+        stencil.launches = groupnorm.launches = 0
+        start = time.perf_counter()
+        wins = demo.main(argv)
+        log(f"  {wins}/5 wins in {time.perf_counter() - start:.2f} s; "
+            f"GroupNorm launches {groupnorm.launches}, stencil launches "
+            f"{stencil.launches}")
+        if want is not None and stencil.launches != want:
+            raise AssertionError(f"demo earthformer: {stencil.launches} "
+                                 "stencil launches, expected one a step")
+    with open(panel, "rb") as f:
+        is_png = f.read(8) == b"\x89PNG\r\n\x1a\n"
+    log(f"  panel {os.path.getsize(panel)} bytes, PNG signature {is_png}")
+    if not is_png:
+        raise AssertionError("demo panel is not a PNG")
+
+
+def cli_phase():
+    """Phases 21-26b in a fresh process (``chip_smoke.py --cli [DIR]``,
+    run after --data on its trees, which it writes itself when DIR holds
+    none): the remaining experiment commands, evaluate.py, sweep.py,
+    quality_runs.py and demo_path_b.py."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
+        for fut in [pool.submit(k.build) for k in (groupnorm, stencil)]:
+            fut.result()
+    t0 = time.perf_counter()
+    keep = sys.argv[2] if len(sys.argv) > 2 else None
+    tmp = keep or tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        trees = {}
+        for preset in DATA_TREES:
+            trees[preset] = os.path.join(tmp, preset)
+            if not os.path.exists(os.path.join(trees[preset], "CATALOG.csv")):
+                tick = time.perf_counter()
+                write_tree(trees[preset], preset)
+                log(f"{preset} tree written in {time.perf_counter() - tick:.2f}"
+                    " s (make_synthetic_sevir_cache)")
+        tot, err = gn_two_pass_phase()
+        sevir384_phase(trees, tmp)
+        vae_gan_phase(trees, tmp)
+        latent_ae_phase(trees, tmp)
+        evaluate_sweep_phase(trees, tmp)
+        quality_phase()
+        demo_phase(tmp)
+    finally:
+        if keep is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phases 21-26b: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -3195,9 +3750,15 @@ def main():
     # ---------------------------------- 14.-17. the model zoo, a fresh process
     subprocess.run([sys.executable, os.path.abspath(__file__), "--zoo"],
                    check=True)
-    # ------------------ 18.-20. data and the command line, a fresh process
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--data"],
-                   check=True)
+    # ------------------ 18.-20. data and the command line, a fresh process,
+    # then 21.-26b., the remaining commands, in another on the same trees
+    shared = tempfile.mkdtemp(prefix="chip_smoke_trees_")
+    try:
+        for flag in ("--data", "--cli"):
+            subprocess.run([sys.executable, os.path.abspath(__file__), flag,
+                            shared], check=True)
+    finally:
+        shutil.rmtree(shared, ignore_errors=True)
 
     # ------------------------------ 9.-11. quantized serving, verification
     ref_calls, fast_calls, int8_launches, _ = int8_serving_phase(
@@ -3243,5 +3804,6 @@ def main():
 
 if __name__ == "__main__":
     sys.exit({"--profile": profile_phase, "--train": train_phase,
-              "--zoo": zoo_phase, "--data": data_phase}.get(
+              "--zoo": zoo_phase, "--data": data_phase,
+              "--cli": cli_phase}.get(
         sys.argv[1] if sys.argv[1:] else "", main)())

@@ -21,8 +21,9 @@ data.
         dataset.img_size=32 ae_kl.block_out_channels=[8,16]
 
 A SEVIR tree with the packed cache built (`dataset.use_cache=true`) is read
-with numpy alone; without `dataset.sevir_dir`, a synthetic tree is written
-under `experiment_path`, which needs h5py.
+with numpy alone; without `dataset.sevir_dir`, a synthetic tree (catalog and
+packed caches, `data/synthetic.py::make_synthetic_sevir_cache`) is written
+under `experiment_path` and read from its caches, also without h5py.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ if REPO not in sys.path:
 from weatherforecastingtoolkit_tpu_torch.data.datamodule import (  # noqa: E402
     SEVIRDataModule)
 from weatherforecastingtoolkit_tpu_torch.data.synthetic import (  # noqa: E402
-    make_synthetic_sevir)
+    make_synthetic_sevir_cache)
 from weatherforecastingtoolkit_tpu_torch.training.trainer import (  # noqa: E402
     Trainer, derive_steps, run_with_retry)
 from weatherforecastingtoolkit_tpu_torch.utils.config import Config  # noqa: E402
@@ -74,28 +75,33 @@ def load_config(exp_file: str, args, dotlist) -> Config:
 
 
 def build_datamodule(cfg: Config) -> SEVIRDataModule:
+    """The config's SEVIRDataModule, set up. Without a SEVIR tree at
+    ``dataset.sevir_dir``, a synthetic tree (catalog and packed caches, no
+    HDF5) is written under ``experiment_path`` and read from its caches."""
     ds = cfg.dataset
     sevir_dir = ds.get("sevir_dir")
-    if not sevir_dir or not os.path.exists(str(sevir_dir)):
-        # hermetic fallback: generate a synthetic SEVIR tree (tests/CI/demo)
+    synthetic = not sevir_dir or not os.path.exists(str(sevir_dir))
+    if synthetic:
+        # hermetic fallback: a synthetic SEVIR tree (tests/CI/demo)
         sevir_dir = os.path.join(cfg.get("experiment_path", "."),
                                  "synthetic_sevir")
-        if not os.path.exists(os.path.join(sevir_dir, "CATALOG.csv")):
-            print(f"[data] no SEVIR dataset; generating synthetic at {sevir_dir}")
-            make_synthetic_sevir(
-                sevir_dir, num_events=ds.get("synthetic_events", 16),
-                height=ds.get("img_size", 128), width=ds.get("img_size", 128),
-                raw_seq_len=ds.get("raw_seq_len", 25))
+    split = ds.get("train_test_split_date", (2019, 6, 1))
     dm = SEVIRDataModule(
         dataset_name=ds.get("name", "sevirlr"), sevir_dir=str(sevir_dir),
         seq_len=ds.seq_len, stride=ds.stride, layout="NTCHW",
         batch_size=ds.batch_size, num_workers=ds.get("num_workers", 4),
         seed=cfg.get("seed", 0), val_ratio=ds.get("val_ratio", 0.1),
         aug_mode=str(ds.get("aug_mode", "0")),
-        use_cache=bool(ds.get("use_cache", False)),
-        train_test_split_date=tuple(ds.get("train_test_split_date", (2019, 6, 1)))
-        if ds.get("train_test_split_date", (2019, 6, 1)) is not None else None,
+        use_cache=synthetic or bool(ds.get("use_cache", False)),
+        train_test_split_date=tuple(split) if split is not None else None,
     )
+    if synthetic and not os.path.exists(os.path.join(sevir_dir, "CATALOG.csv")):
+        print(f"[data] no SEVIR dataset; generating synthetic at {sevir_dir}")
+        make_synthetic_sevir_cache(
+            sevir_dir, dm.split_dates(),
+            num_events=ds.get("synthetic_events", 16),
+            height=ds.get("img_size", 128), width=ds.get("img_size", 128),
+            raw_seq_len=ds.get("raw_seq_len", 25))
     dm.prepare_data()
     dm.setup()
     return dm

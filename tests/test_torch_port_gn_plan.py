@@ -8,6 +8,11 @@ streaming tick (1 and 12) and its init (13), and the fast VAE at B=256 (3328
 and 3072). Each plan is checked against an H100's limits: 232,448 bytes of
 shared memory a block, clusters of 8 (portable) or 16. No call shape of
 these paths may take the two-pass path.
+
+The full-resolution VAE of experiments/vae_sevir384 (AutoencoderKL(64, 128,
+256, 512) at 384², 25 frames a step) is the first caller of the two-pass
+path: its C=64 and C=128 GroupNorms at 384² hold more than a cluster's
+shared memory, every smaller frame fits a cluster.
 """
 
 import collections
@@ -32,6 +37,12 @@ PATHS = {"reference B=64": (REFERENCE_VAE, 832, 768, 42),
 def _call_shapes(path):
     """Counter of ((N, C, H, W), groups) over one call of `path`."""
     cfg, n_enc, n_dec, _ = PATHS[path]
+    return _record(cfg, n_enc, n_dec, 128, LATENT_SHAPE)
+
+
+def _record(cfg, n_enc, n_dec, hw, latent_shape):
+    """Counter of ((N, C, H, W), groups) over an encode of n_enc frames of
+    hw² and a decode of n_dec latents of latent_shape."""
     calls = collections.Counter()
 
     def record(x, scale, bias, groups=32, eps=1e-6, silu=True):
@@ -44,9 +55,9 @@ def _call_shapes(path):
         vae = AutoencoderKL(**cfg, device="meta")
         with torch.no_grad():
             if n_enc:
-                vae.encode(torch.zeros(n_enc, 1, 128, 128, device="meta"))
+                vae.encode(torch.zeros(n_enc, 1, hw, hw, device="meta"))
             if n_dec:
-                vae.decode(torch.zeros((n_dec,) + LATENT_SHAPE,
+                vae.decode(torch.zeros((n_dec,) + tuple(latent_shape),
                                        device="meta"))
     return calls
 
@@ -108,3 +119,31 @@ def test_large_frames_take_wide_runs_on_clusters_of_16(call_shapes):
 ])
 def test_two_pass_shapes(n, c, hw, groups, elem, want):
     assert pgn._plan(n, c, hw, groups, elem, H100_SMEM_PER_BLOCK, 16) == want
+
+
+# experiments/vae_sevir384/config.yaml's model; a step encodes B*T = 25
+# frames of 384² and decodes their 4x48x48 latents
+SEVIR384_VAE = dict(in_channels=1, out_channels=1,
+                    block_out_channels=(64, 128, 256, 512),
+                    layers_per_block=1, latent_channels=4, norm_num_groups=32)
+
+
+@pytest.mark.parametrize("max_cluster", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vae_sevir384_two_pass_shapes(dtype, max_cluster):
+    """Of the 36 GroupNorms of a vae_sevir384 forward (14 in the encode, 22
+    in the decode), the seven at 384² take the two-pass path: C=64 twice in
+    the encoder's first block, C=128 (the first resnet's norm1) and C=64
+    three times in the decoder's last up block, and conv_norm_out (C=64).
+    Every call shape from 192² down takes the cluster kernel."""
+    calls = _record(SEVIR384_VAE, 25, 25, 384, (4, 48, 48))
+    assert sum(calls.values()) == 36
+    elem = torch.empty((), dtype=dtype).element_size()
+    two_pass = collections.Counter()
+    for ((n, c, h, w), groups), count in calls.items():
+        plan = pgn._plan(n, c, h * w, groups, elem, H100_SMEM_PER_BLOCK,
+                         max_cluster)
+        if plan[1] == 0:
+            two_pass[(n, c, h, w)] += count
+            assert plan == (0, 0, 0, 16 // elem)
+    assert two_pass == {(25, 64, 384, 384): 6, (25, 128, 384, 384): 1}

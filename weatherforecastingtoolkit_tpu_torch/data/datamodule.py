@@ -280,18 +280,32 @@ class SEVIRDataModule:
                 except OSError:
                     pass
 
-    def setup(self, stage: Optional[str] = None) -> None:
+    def split_dates(self, stage: Optional[str] = None):
+        """{split tag: (start, end)} of the splits ``setup(stage)`` makes
+        (start exclusive, end inclusive, None unbounded); each split's
+        packed cache is keyed by its tag."""
+        out = {}
         if stage in (None, "fit"):
             if self.val_split_date is not None:
                 # sevire-style 3-way date split
-                self.sevir_train = self._make(self.start_date, self.val_split_date,
-                                              self.aug_mode, True, "train")
-                self.sevir_val = self._make(self.val_split_date,
-                                            self.train_test_split_date, "0",
-                                            False, "val")
+                out["train"] = (self.start_date, self.val_split_date)
+                out["val"] = (self.val_split_date, self.train_test_split_date)
             else:
-                full = self._make(self.start_date, self.train_test_split_date,
-                                  self.aug_mode, True, "train")
+                out["train"] = (self.start_date, self.train_test_split_date)
+        if stage in (None, "test"):
+            out["test"] = (self.train_test_split_date, self.end_date)
+        return out
+
+    def setup(self, stage: Optional[str] = None) -> None:
+        dates = self.split_dates(stage)
+        if stage in (None, "fit"):
+            if "val" in dates:
+                self.sevir_train = self._make(*dates["train"], self.aug_mode,
+                                              True, "train")
+                self.sevir_val = self._make(*dates["val"], "0", False, "val")
+            else:
+                full = self._make(*dates["train"], self.aug_mode, True,
+                                  "train")
                 n = len(full)
                 rng = np.random.default_rng(self.seed)
                 perm = rng.permutation(n)
@@ -299,8 +313,7 @@ class SEVIRDataModule:
                 self.sevir_val = SubsetDataset(full, perm[:n_val])
                 self.sevir_train = SubsetDataset(full, perm[n_val:])
         if stage in (None, "test"):
-            self.sevir_test = self._make(self.train_test_split_date, self.end_date,
-                                         "0", False, "test")
+            self.sevir_test = self._make(*dates["test"], "0", False, "test")
 
     # -- loaders -------------------------------------------------------------
     def train_loader(self) -> BatchLoader:

@@ -23,7 +23,8 @@ cluster cannot hold take a two-pass path (three launches).
 Dispatch: a CPU tensor takes ``group_norm_silu_reference``; a CUDA tensor
 launches the kernel or raises. The kernel is built with ``nvcc`` for
 ``sm_90a`` at first use into ``_build/`` (keyed by a hash of the source) and
-bound with ``ctypes``. ``launches`` counts calls that launched it.
+bound with ``ctypes``. ``launches`` counts calls that launched it,
+``two_pass_launches`` those of them on the two-pass path.
 """
 
 from __future__ import annotations
@@ -50,8 +51,11 @@ RUN_BYTES = (32, 64, 128, 256)
 # best of the runs and cluster sizes tried on the H100 (PERF.md).
 BLOCK_BYTES = 64 * 1024
 
-# Number of kernel launches since the last reset (a caller sets it to 0).
+# Number of kernel launches since the last reset (a caller sets it to 0);
+# ``two_pass_launches`` counts the calls among them that took the two-pass
+# path.
 launches = 0
+two_pass_launches = 0
 # The last nvcc run in this process: seconds and output (ptxas -v).
 build_seconds = 0.0
 build_log = ""
@@ -185,7 +189,7 @@ def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, groups: int, eps: float,
                          silu: bool) -> torch.Tensor:
     """Launch the kernel on x's device and PyTorch's current stream."""
-    global launches
+    global launches, two_pass_launches
     if not x.is_cuda:
         raise ValueError(f"group_norm_silu_cuda needs a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -243,6 +247,7 @@ def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"gn_silu_forward failed with CUDA error {rc}")
     launches += 1
+    two_pass_launches += not cs
     return y
 
 
