@@ -181,8 +181,42 @@ Phases (any failure exits non-zero; no phase's failure is caught):
  26. quality_runs.py per model at --steps 100 --steps-ae 100 (win counts;
      one stencil launch a training step in Earthformer's, none in
      token_vit's or AlphaPre's, whose recipe has no prior); 26b.
-     demo_path_b.py at its defaults (64^2, 300 + 300 steps, the panel PNG)
-     and with --forecaster earthformer (one stencil launch a step);
+     demo_path_b.py at 100 + 100 steps (its defaults otherwise: 64^2; the
+     panel PNG) and with --forecaster earthformer at its defaults (300
+     steps, one stencil launch a step);
+ 27. in a fresh process (chip_smoke.py --dist, run after --cli), the
+     distributed layer at world size 1 over NCCL: make_dp_serving_fn of
+     the reference pipeline, bf16, B=64 (host uint8 frames in, numpy out):
+     the plain pipeline's bits, 42 GN launches a call, ms a call beside the
+     plain pipeline's, in turns;
+ 28. export_pipeline -> load_pipeline (torch.export, symbolic batch) of
+     the same pipeline: the eager bits at B=64 and B=8, 42 GN launches a
+     call through the custom op wftk::group_norm_silu, ms against eager;
+ 29. Trainer(mesh=...) on the fast VAE's GAN step (experiments_gpu/perf/
+     fast_vae_train.py::build_task(FAST_SHAPE), bf16, 16 x 4, cuDNN
+     deterministic): the non-mesh Trainer's bits on 3 steps (losses,
+     d_weight, grad_norm, every parameter), 30 GN launches a step, ms a
+     step of both in turns;
+ 30. trainer.fsdp on the same step: aux within rel 1e-5 and parameters
+     after 3 steps within rel-L2 1e-5 of the non-mesh step's,
+     shard_fraction, peak memory, ms a step; a sharded checkpoint
+     (torch.distributed.checkpoint) at step 2 resumed into shards, its
+     step 3 within 1e-6 of the straight run;
+ 31. two ranks sharing the card over gloo (chip_smoke.py --dist-rank, two
+     processes; NCCL refuses two ranks a GPU), Trainer(mesh=...) DP steps
+     of the same task on 8 x 4 rows each against one rank on the 16 x 4
+     batch, 2 steps, fp32 (TF32 off) and bf16: the first step's gradient
+     averages equal to the mean of the ranks' own gradients (sent point to
+     point); the update and the parameters within rel-L2 1e-5 of the same
+     two halves stepped in this process (two threads); in fp32 the first
+     step's losses within rel 1e-5 and d_weight and grad_norm within rel
+     1e-4 of one rank's on the whole batch; printed: the halves' averaged
+     gradients against the whole batch's in one process, and the
+     gradients', the update's and the parameters' rel-L2 against one rank
+     (Adam's sign-like first step; in bf16 each rank's weight gradients
+     are rounded to bf16 before the sum); ms a step;
+ 32. graft_entry_torch.entry()'s program (bench.py's fp32 Path-B, B=64)
+     once, 42 GN launches, and dryrun_multichip(1) on the card;
  and, after phase 9, the int8 modes' gradients on the card against the
  CPU's (rel 1e-5).
 The kernels build in parallel (one nvcc per source). fp32 runs with TF32
@@ -1800,7 +1834,7 @@ def fast_vae_train_phase():
     from experiments_gpu.perf.fast_vae_train import FAST_SHAPE, build_step
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
     from weatherforecastingtoolkit_tpu_torch.ops.cuda.groupnorm import (
-        GroupNormSiLUFunction, group_norm_silu_reference)
+        group_norm_silu, group_norm_silu_reference)
 
     b = FAST_TRAIN_BATCH
     log(f"phase 13: fast-VAE GAN training (experiments_gpu/perf/"
@@ -1856,7 +1890,7 @@ def fast_vae_train_phase():
             sorted(calls.items(), key=lambda kv: -np.prod(kv[0][0]))):
         x, sc, bi = gn_inputs(shape, dtype, cl, seed=1100 + i)
         leaves = [t.to(dtype).requires_grad_() for t in (x, sc, bi)]
-        y = GroupNormSiLUFunction.apply(*leaves, groups, eps, silu)
+        y = group_norm_silu(*leaves, groups, eps, silu)
         g = torch.randn(y.shape, device="cuda").to(dtype)
         if i == 0:   # the kernel's gradient against the plain version's
             want = torch.autograd.grad(group_norm_silu_reference(
@@ -2589,7 +2623,8 @@ class StepProbe:
     time spent between steps (fetching, pinning and copying the next batch,
     logging), and a torch.profiler window (CUDA activity only) over steps
     [t1, n_steps), in which CUDA events also bracket each GroupNorm backward
-    (GroupNormSiLUFunction.backward, the plain version's autograd)."""
+    (ops/cuda/groupnorm.py::backward, the custom op's registered autograd:
+    the plain version's)."""
 
     def __init__(self, t0, t1, n_steps):
         self.t0, self.t1, self.n_steps = t0, t1, n_steps
@@ -2600,14 +2635,12 @@ class StepProbe:
     def __enter__(self):
         import torch
 
-        from weatherforecastingtoolkit_tpu_torch.ops.cuda.groupnorm import (
-            GroupNormSiLUFunction)
+        from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
         from weatherforecastingtoolkit_tpu_torch.training.trainer import (
             Trainer)
 
         self.cls, self.orig = Trainer, Trainer._train_step
-        self.gn_fn, self.gn_bwd = GroupNormSiLUFunction, \
-            GroupNormSiLUFunction.backward
+        self.gn_mod, self.gn_bwd = groupnorm, groupnorm.backward
         probe = self
 
         def gn_backward(ctx, g):
@@ -2636,12 +2669,12 @@ class StepProbe:
             return out
 
         Trainer._train_step = step
-        GroupNormSiLUFunction.backward = staticmethod(gn_backward)
+        groupnorm.backward = gn_backward
         return self
 
     def __exit__(self, *exc):
         self.cls._train_step = self.orig
-        self.gn_fn.backward = staticmethod(self.gn_bwd)
+        self.gn_mod.backward = self.gn_bwd
 
     def gn_backward_ms(self):
         """(device ms a profiled step between the CUDA events around each
@@ -3127,14 +3160,14 @@ def gn_backward_ms(calls):
     import torch
 
     from weatherforecastingtoolkit_tpu_torch.ops.cuda.groupnorm import (
-        GroupNormSiLUFunction)
+        group_norm_silu)
 
     total = 0.0
     for i, ((shape, dtype, cl, groups, eps, silu), count) in enumerate(
             sorted(calls.items(), key=lambda kv: -np.prod(kv[0][0]))):
         x, sc, bi = gn_inputs(shape, dtype, cl, seed=2200 + i)
         leaves = [t.to(dtype).requires_grad_() for t in (x, sc, bi)]
-        y = GroupNormSiLUFunction.apply(*leaves, groups, eps, silu)
+        y = group_norm_silu(*leaves, groups, eps, silu)
         g = torch.randn(y.shape, device="cuda").to(dtype)
         ms = profile_step(lambda: torch.autograd.grad(
             y, leaves, g, retain_graph=True), 1)[0]
@@ -3189,7 +3222,7 @@ def sevir384_phase(trees, tmp):
     bwd = 2 * gn_backward_ms(calls)
     log(f"  per step: GN backward (plain autograd) measured in the profiled "
         f"steps {probe.t1}-{probe.n_steps - 1} (CUDA events around each of "
-        f"its {n_bwd:.0f} GroupNormSiLUFunction.backward calls a step) "
+        f"its {n_bwd:.0f} GroupNorm backward calls a step) "
         f"{in_step:.2f} ms, {in_step / kernel_ms:.1%} of the step's "
         f"{kernel_ms:.2f} ms of kernels; the same estimated from one "
         f"backward at each forward call shape alone, x2 (two generator "
@@ -3410,11 +3443,15 @@ def demo_phase(tmp):
     demo = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(demo)
     panel = os.path.join(tmp, "demo_panel.png")
-    for argv, want in ((["--save-panel", panel], None),
+    # the default run at 100 + 100 steps (its default 300 + 300, cut for
+    # the script's time; the panel is the check), the Earthformer branch at
+    # its defaults
+    for argv, want in ((["--save-panel", panel, "--steps-ae", "100",
+                         "--steps-fc", "100"], None),
                        (["--forecaster", "earthformer"], 300)):
         log(f"phase 26b: python experiments_gpu/demo_path_b.py "
-            f"{' '.join(argv)} (defaults: 64 events at 64^2, 300 + 300 "
-            "steps)")
+            f"{' '.join(argv)} (otherwise its defaults: 64 events at 64^2, "
+            "300 + 300 steps)")
         stencil.launches = groupnorm.launches = 0
         start = time.perf_counter()
         wins = demo.main(argv)
@@ -3476,6 +3513,708 @@ def cli_phase():
         if keep is None:
             shutil.rmtree(tmp, ignore_errors=True)
     log(f"phases 21-26b: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+# ----------------------------------------------------------- --dist (27-32)
+DIST_STEPS, DIST_TIMED = 3, 5   # checked steps, then timed steps
+TWO_RANK_STEPS = 2              # two ranks on one card, 8 x 4 rows each
+GAN_AUX = ("loss", "rec_loss", "g_loss", "disc_loss", "d_weight",
+           "grad_norm")
+
+
+def dist_config(tmp, name, fsdp=False):
+    from experiments_gpu.perf.fast_vae_train import TRAINER_OPTIM
+    from weatherforecastingtoolkit_tpu_torch.utils.config import Config
+
+    return Config({
+        "experiment_name": name, "experiment_path": tmp, "seed": 0,
+        "optim": dict(TRAINER_OPTIM),
+        "trainer": {"max_epochs": 1, "total_train_steps": 100,
+                    "save_every_n_steps": 1.0, "fsdp": fsdp,
+                    "async_checkpoint": False},
+        "logging": {"log_every_n_steps": 1, "val_every_n": 10.0}})
+
+
+def full_params(state):
+    """Every generator and discriminator parameter, whole (an FSDP shard
+    gathered), detached clones."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.parallel.fsdp import unsharded
+
+    mods = (state.params, state.extra["disc_params"])
+    with torch.no_grad():
+        return {f"{i}.{k}": unsharded(p).detach().clone()
+                for i, m in enumerate(mods) for k, p in m.named_parameters()}
+
+
+def rel_l2(got, want):
+    import torch
+
+    a = torch.cat([got[k].double().flatten() for k in want])
+    b = torch.cat([want[k].double().flatten() for k in want])
+    return float((a - b).norm() / b.norm())
+
+
+def dist_serving_phase(mesh, tmp):
+    """Phases 27-28: dp serving of the reference pipeline (bf16, B=64) at
+    world size 1 over NCCL, and its torch.export program."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
+        synthetic_vil_events)
+    from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
+    from weatherforecastingtoolkit_tpu_torch.models.rollout import (
+        make_forecast_pipeline)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.parallel.serving import (
+        export_pipeline, load_pipeline, make_dp_serving_fn)
+
+    events = synthetic_vil_events(BATCH, HW, HW, T_IN, seed=0)
+    host = np.ascontiguousarray(np.transpose(events, (0, 3, 1, 2))[:, :, None])
+    frames = torch.from_numpy(host).cuda()                      # uint8
+    vae16 = AutoencoderKL(**REFERENCE_VAE, seed=0).to(torch.bfloat16)
+    dlinear = DLinear(T_IN, T_OUT, kernel_size=25)
+    pipe = make_forecast_pipeline(**codec(vae16, torch.bfloat16))
+    serve = make_dp_serving_fn(pipe, mesh, params=dlinear)
+
+    def counted(fn):
+        groupnorm.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, groupnorm.launches
+
+    def in_turns(fns, n):
+        """Median ms of each fn over n rounds, called in turns."""
+        times = [[] for _ in fns]
+        for _ in range(n):
+            for t, fn in zip(times, fns):
+                t.append(wall_times(fn, 1)[0][0])
+        return [statistics.median(t) * 1e3 for t in times]
+
+    log(f"phase 27: make_dp_serving_fn of the reference pipeline, bf16, "
+        f"B={BATCH}, world size 1 over NCCL (host uint8 frames in, numpy out)")
+    want = pipe(dlinear, frames).cpu().numpy()
+    got, launches = counted(lambda: serve(host))
+    if not np.array_equal(got, want):
+        raise AssertionError("dp serving differs from the plain pipeline: max "
+                             f"abs {np.abs(got - want).max()}")
+    if launches != 42:
+        raise AssertionError(f"dp serving: {launches} GN launches, not 42")
+    plain_ms, serve_ms = in_turns([lambda: pipe(dlinear, frames),
+                                   lambda: serve(host)], 5)
+    log(f"  the plain pipeline's bits; 42 GN launches a call; "
+        f"{serve_ms:.2f} ms a call (host frames in, numpy out) against the "
+        f"plain pipeline's {plain_ms:.2f} ms (device frames), medians of 5 "
+        "in turns")
+
+    log("phase 28: export_pipeline -> load_pipeline (torch.export, symbolic "
+        "batch; the GroupNorm kernel as the custom op wftk::group_norm_silu)")
+    path = os.path.join(tmp, "rollout.pt2")
+    t0 = time.perf_counter()
+    export_pipeline(pipe, dlinear, frames, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call = load_pipeline(path)
+    load_s = time.perf_counter() - t0
+    for b in (BATCH, 8):
+        got, launches = counted(lambda: call(frames[:b]))
+        if not torch.equal(got, pipe(dlinear, frames[:b])):
+            raise AssertionError(f"exported program at B={b} differs from "
+                                 "the eager pipeline")
+        if launches != 42:
+            raise AssertionError(f"exported program at B={b}: {launches} GN "
+                                 "launches, not 42")
+    eager_ms, exported_ms = in_turns([lambda: pipe(dlinear, frames),
+                                      lambda: call(frames)], 5)
+    log(f"  export {export_s:.1f} s, load {load_s:.1f} s, "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB; the eager pipeline's bits "
+        f"at B={BATCH} and B=8, 42 GN launches a call through the op; "
+        f"{exported_ms:.2f} ms a call against eager {eager_ms:.2f} ms "
+        "(medians of 5 in turns)")
+
+
+def dist_train_phase(mesh, tmp):
+    """Phases 29-30: the fast VAE's GAN step (bf16, 16 x 4) through
+    Trainer(mesh=...) at world size 1 over NCCL against the Trainer without
+    a mesh, then with trainer.fsdp (and its sharded checkpoint)."""
+    import torch
+
+    from experiments_gpu.perf.fast_vae_train import FAST_SHAPE, build_task
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.parallel.fsdp import (
+        shard_fraction)
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+
+    b = FAST_TRAIN_BATCH
+    batch = {"vil": torch.from_numpy(np.random.default_rng(0).random(
+        (b, GAN_T, 1, HW, HW), np.float32)).cuda()}
+
+    def trainer(name, mesh=None, fsdp=False, resume=False):
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(dist_config(tmp, name, fsdp), build_task(FAST_SHAPE),
+                     mesh=mesh, resume=resume)
+        return tr, tr.init_state()
+
+    def steps(tr, state, n, save_at=None):
+        auxes, launches = [], []
+        for i in range(n):
+            groupnorm.launches = 0
+            state, aux = tr._train_step(state, batch)
+            torch.cuda.synchronize()
+            launches.append(groupnorm.launches)
+            check_gan_aux(aux, tr.run_id)
+            auxes.append({k: float(aux[k]) for k in GAN_AUX})
+            if save_at == i + 1:
+                tr.ckpt.save(save_at, state)
+        return state, auxes, launches
+
+    def step_ms(runs):
+        """Median ms a step of each (trainer, state), stepping in turns."""
+        times = [[] for _ in runs]
+        for _ in range(DIST_TIMED):
+            for t, (tr, st) in zip(times, runs):
+                t.append(timed_steps(lambda: tr._train_step(st, batch),
+                                     1)[0][0])
+        return [statistics.median(t) * 1e3 for t in times]
+
+    log(f"phase 29: Trainer(mesh=...) at world size 1 over NCCL, the fast "
+        f"VAE's GAN step (experiments_gpu/perf/fast_vae_train.py::"
+        f"build_task(FAST_SHAPE), bf16), B x T = {b} x {GAN_T}, against the "
+        f"Trainer without a mesh, {DIST_STEPS} steps (cuDNN deterministic)")
+    plain, ps = trainer("dist_plain")
+    ps, plain_aux, _ = steps(plain, ps, DIST_STEPS)
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    want = full_params(ps)
+    dp, ds = trainer("dist_dp", mesh)
+    ds, dp_aux, dp_launches = steps(dp, ds, DIST_STEPS)
+    got = full_params(ds)
+    if dp_aux != plain_aux:
+        raise AssertionError(f"mesh step aux {dp_aux} != {plain_aux}")
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"mesh step parameters differ: {differ[:5]}")
+    if dp_launches != [30] * DIST_STEPS:
+        raise AssertionError(f"mesh step GN launches {dp_launches}, not 30")
+    plain_ms, dp_ms = step_ms([(plain, ps), (dp, ds)])
+    log(f"  the non-mesh step's bits on {DIST_STEPS} steps (losses, d_weight "
+        f"{dp_aux[-1]['d_weight']:.6g}, grad_norm {dp_aux[-1]['grad_norm']:.6g}"
+        f", every parameter); 30 GN launches a step; {dp_ms:.2f} ms a step "
+        f"against {plain_ms:.2f} ms without a mesh (medians of {DIST_TIMED} "
+        f"in turns); peak {plain_peak:.2f} GiB without a mesh")
+    dp.close()
+    del dp, ds, got
+
+    log(f"phase 30: trainer.fsdp at world size 1 over NCCL, the same step; a "
+        f"sharded checkpoint at step 2 and its resume")
+    fs, fst = trainer("dist_fsdp", mesh, fsdp=True)
+    frac = (shard_fraction(fst.params),
+            shard_fraction(fst.extra["disc_params"]))
+    fst, fs_aux, fs_launches = steps(fs, fst, DIST_STEPS, save_at=2)
+    fs_peak = torch.cuda.max_memory_allocated() / 2**30
+    straight = full_params(fst)
+    worst = max(abs(a[k] - w[k]) / abs(w[k]) for a, w in zip(fs_aux, plain_aux)
+                for k in GAN_AUX if w[k])
+    err = rel_l2(straight, want)
+    if not worst <= 1e-5:
+        raise AssertionError(f"FSDP aux rel error {worst} > 1e-5")
+    if not err <= 1e-5:
+        raise AssertionError(f"FSDP parameters rel-L2 {err} > 1e-5")
+    if fs_launches != [30] * DIST_STEPS:
+        raise AssertionError(f"FSDP step GN launches {fs_launches}")
+    fs_ms, plain_ms2 = step_ms([(fs, fst), (plain, ps)])
+    plain.close()
+    del plain, ps, want
+    fs.close()
+    del fs, fst
+    torch.cuda.empty_cache()
+    res, rst = trainer("dist_fsdp", mesh, fsdp=True, resume=True)
+    if int(rst.step) != 2:
+        raise AssertionError(f"FSDP resume at step {rst.step}, not 2")
+    rst, _, _ = steps(res, rst, 1)
+    resumed = full_params(rst)
+    gap = max(float((resumed[k] - straight[k]).abs().max()) for k in straight)
+    if not gap <= 1e-6:
+        raise AssertionError(f"FSDP resume differs from the straight run by "
+                             f"{gap}")
+    res.close()
+    log(f"  shard_fraction {frac[0]:.3f} (generator), {frac[1]:.3f} "
+        f"(discriminator) at world size 1; aux within rel {worst:.3g} of the "
+        f"non-mesh step's, parameters after {DIST_STEPS} steps rel-L2 "
+        f"{err:.3g}; 30 GN launches a step; {fs_ms:.2f} ms a step against "
+        f"{plain_ms2:.2f} without a mesh (in turns), peak {fs_peak:.2f} GiB "
+        f"(without a mesh {plain_peak:.2f}); resumed at step 2 from the "
+        f"sharded checkpoint, step 3 within {gap:.3g} of the straight run")
+    del res, rst
+    torch.cuda.empty_cache()
+
+
+class RecordUpdates:
+    """Records, while active, the gradients each optimizer update of the
+    first ``n`` receives (AdamW.update is wrapped: the generator's
+    optimizer, then the discriminator's, each step), as host copies."""
+
+    def __init__(self, n):
+        self.n, self.grads = n, []
+
+    def __enter__(self):
+        from weatherforecastingtoolkit_tpu_torch.training import optim
+
+        self.cls, self.orig = optim.AdamW, optim.AdamW.update
+        rec = self
+
+        def update(tx, params, grads, state):
+            if len(rec.grads) < rec.n:
+                rec.grads.append([g.detach().float().cpu() for g in grads])
+            return rec.orig(tx, params, grads, state)
+
+        optim.AdamW.update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update = self.orig
+
+
+class RecordReduce:
+    """Records, while active, the flattened gradients each of the first
+    ``n`` gradient averages over 'dp' (``parallel/mesh.py::
+    all_reduce_mean_`` as ``reduce_gradients`` calls it) takes in and gives
+    back, as host copies."""
+
+    def __init__(self, n):
+        self.n, self.calls = n, []
+
+    def __enter__(self):
+        import torch
+
+        from weatherforecastingtoolkit_tpu_torch.parallel import mesh
+
+        self.mod, self.orig = mesh, mesh.all_reduce_mean_
+        rec = self
+
+        def flat(tensors):
+            return torch.cat([mesh.local(t).float().flatten()
+                              for t in tensors]).cpu()
+
+        def all_reduce_mean_(tensors, m=None):
+            before = flat(tensors) if len(rec.calls) < rec.n else None
+            rec.orig(tensors, m)
+            if before is not None:
+                rec.calls.append((before, flat(tensors)))
+
+        mesh.all_reduce_mean_ = all_reduce_mean_
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.all_reduce_mean_ = self.orig
+
+
+class TwoHalves:
+    """Two data-parallel ranks as two threads of this process, each stepping
+    its own Trainer without a mesh on its half of the batch: while active,
+    ``parallel/mesh.py``'s 'dp' size is 2 and its rank the thread's, and a
+    gradient (or aux) average is the two threads' flattened tensors summed
+    and halved, as gloo's all-reduce and ``all_reduce_mean_`` compute it. So
+    the two-rank step is computed in one process, without gloo. Records
+    each thread's first two optimizer updates' gradients (host copies)."""
+
+    def __init__(self):
+        import threading
+
+        self.local = threading.local()
+        self.barrier = threading.Barrier(2, timeout=300)
+        self.slots = [None, None]
+        self.grads = [[], []]
+
+    def all_reduce_mean_(self, tensors, m=None):
+        import torch
+
+        from weatherforecastingtoolkit_tpu_torch.parallel import mesh
+
+        rank = self.local.rank
+        for run in mesh._buckets([mesh.local(t) for t in tensors]):
+            self.slots[rank] = torch.cat([t.reshape(-1) for t in run])
+            self.barrier.wait()
+            flat = self.slots[0] + self.slots[1]
+            self.barrier.wait()
+            flat.div_(2)
+            torch._foreach_copy_(run, [f.view_as(t) for f, t in zip(
+                flat.split([t.numel() for t in run]), run)])
+
+    def run(self, runs, n_steps):
+        """Step each (trainer, state, batch) of ``runs`` (two) n_steps times,
+        one thread each."""
+        import threading
+
+        from weatherforecastingtoolkit_tpu_torch.parallel import mesh
+        from weatherforecastingtoolkit_tpu_torch.training import (optim,
+                                                                   trainer)
+
+        saved = (mesh._ACTIVE, mesh.dp_size, mesh.dp_rank,
+                 mesh.all_reduce_mean_, trainer.all_reduce_mean_,
+                 optim.AdamW.update)
+        orig_update, halves = optim.AdamW.update, self
+
+        def update(tx, params, grads, state):
+            mine = halves.grads[halves.local.rank]
+            if len(mine) < 2:
+                mine.append([g.detach().float().cpu() for g in grads])
+            return orig_update(tx, params, grads, state)
+
+        mesh._ACTIVE = object()
+        mesh.dp_size = lambda m: 2
+        mesh.dp_rank = lambda m: self.local.rank
+        mesh.all_reduce_mean_ = trainer.all_reduce_mean_ = \
+            self.all_reduce_mean_
+        optim.AdamW.update = update
+        errors = []
+
+        def work(rank, tr, state, batch):
+            self.local.rank = rank
+            try:
+                for _ in range(n_steps):
+                    tr._train_step(state, batch)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+                self.barrier.abort()
+
+        try:
+            threads = [threading.Thread(target=work, args=(r,) + run)
+                       for r, run in enumerate(runs)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            (mesh._ACTIVE, mesh.dp_size, mesh.dp_rank, mesh.all_reduce_mean_,
+             trainer.all_reduce_mean_, optim.AdamW.update) = saved
+        if errors:
+            raise errors[0]
+
+
+def two_halves_run(tmp, mixed, full):
+    """The two-rank step of phase 31 computed in this process
+    (``TwoHalves``): rank 0's first step's update gradients and its
+    parameters before and after TWO_RANK_STEPS steps (host copies)."""
+    import torch
+
+    from experiments_gpu.perf.fast_vae_train import FAST_SHAPE, build_task
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+
+    runs, half = [], len(full) // 2
+    for r in range(2):
+        tr = Trainer(dist_config(tmp, f"halves_{mixed}_{r}"),
+                     build_task(FAST_SHAPE, mixed))
+        runs.append((tr, tr.init_state(), {"vil": torch.from_numpy(
+            full[r * half:(r + 1) * half]).cuda()}))
+    before = {k: v.cpu() for k, v in full_params(runs[0][1]).items()}
+    halves = TwoHalves()
+    halves.run(runs, TWO_RANK_STEPS)
+    torch.cuda.synchronize()
+    out = {"grads": halves.grads[0], "before": before,
+           "after": {k: v.cpu() for k, v in full_params(runs[0][1]).items()}}
+    for tr, _, _ in runs:
+        tr.close()
+    return out
+
+
+def two_rank_run(tr, state, batch):
+    """TWO_RANK_STEPS steps: aux, the first step's gradients (generator,
+    discriminator), the parameters before and after (host copies)."""
+    before = {k: v.cpu() for k, v in full_params(state).items()}
+    with RecordUpdates(2) as rec, RecordReduce(3) as red:
+        _, auxes = timed_steps(lambda: tr._train_step(state, batch),
+                               TWO_RANK_STEPS)
+    return {"aux": [{k: float(a[k]) for k in GAN_AUX} for a in auxes],
+            "grads": rec.grads, "before": before, "reduced": red.calls,
+            "after": {k: v.cpu() for k, v in full_params(state).items()}}
+
+
+def reduce_error(calls, rank):
+    """The first step's gradient averages against the mean of the two
+    ranks' own gradients, sent from rank 1 to rank 0 point to point (gloo
+    send/recv, not the all-reduce under test): the largest abs error over
+    the largest abs mean (rank 0; None on rank 1)."""
+    import torch
+    import torch.distributed as dist
+
+    worst = 0.0
+    for before, after in calls:
+        if rank:
+            dist.send(before, dst=0)
+            continue
+        other = torch.empty_like(before)
+        dist.recv(other, src=1)
+        mean = (before + other) / 2
+        worst = max(worst, float((after - mean).abs().max()
+                                 / mean.abs().max()))
+    return None if rank else worst
+
+
+def dist_rank_phase():
+    """One of the two ranks of phase 31 (``chip_smoke.py --dist-rank R
+    PORT DIR``): gloo on the one card, this rank's 8 x 4 rows, fp32 then
+    bf16; writes its results (rank 0: with its gradients and parameters)
+    and its ms a step to DIR."""
+    import torch
+
+    from experiments_gpu.perf.fast_vae_train import FAST_SHAPE, build_task
+    from weatherforecastingtoolkit_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh, shard_batch)
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+
+    rank, port, tmp = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh(("dp",))
+    batch = {"vil": shard_batch(torch.from_numpy(np.load(os.path.join(
+        tmp, "batch.npy"))), mesh).cuda()}
+    out = {}
+    for mixed in (False, True):
+        tr = Trainer(dist_config(tmp, f"two_rank_{mixed}"),
+                     build_task(FAST_SHAPE, mixed), mesh=mesh)
+        state = tr.init_state()
+        run = two_rank_run(tr, state, batch)
+        run["reduce_err"] = reduce_error(run.pop("reduced"), rank)
+        if rank:
+            run = {"aux": run["aux"]}
+        run["ms"] = statistics.median(timed_steps(
+            lambda: tr._train_step(state, batch), DIST_TIMED)[0]) * 1e3
+        out[mixed] = run
+        tr.close()
+        del tr, state
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def two_rank_phase(tmp):
+    """Phase 31: two ranks on the one card over gloo (NCCL refuses two ranks
+    a GPU): Trainer(mesh=...) DP steps of the fast VAE's GAN task on 8 x 4
+    rows each against the one-rank step on the concatenated 16 x 4 batch.
+
+    Gated, fp32 and bf16: each of the first step's gradient averages (the
+    generator's last layer, the rest of the generator, the discriminator)
+    is the mean of the two ranks' own gradients (within 1e-6 of its
+    largest value); the update and the parameters after both steps within
+    rel-L2 1e-5 of the same two halves stepped in this process
+    (``TwoHalves``: two threads, the averages computed as gloo does).
+    Gated in fp32 against the one rank on the whole batch: the losses of
+    the first step within rel 1e-5, d_weight and grad_norm of both steps
+    within rel 1e-4. Printed: how far the two halves' averaged gradients
+    lie from the whole batch's, both in this process (the convolutions
+    sum in another order at 8 x 4 than at 16 x 4), and the two ranks'
+    gradients, update and parameters against the whole batch's, in
+    rel-L2: Adam's first step is lr * sign(g), so every element whose
+    gradient lies near zero moves a whole step the other way. In bf16
+    each rank's weight gradients are rounded to bf16 before the sum."""
+    import torch
+
+    from experiments_gpu.perf.fast_vae_train import FAST_SHAPE, build_task
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+
+    b = FAST_TRAIN_BATCH
+    full = np.random.default_rng(1).random((b, GAN_T, 1, HW, HW), np.float32)
+    np.save(os.path.join(tmp, "batch.npy"), full)
+    log(f"phase 31: two ranks on the one card over gloo (CUDA tensors, "
+        f"host-staged all-reduce), Trainer(mesh=...) DP steps of the fast "
+        f"VAE's GAN task, {b // 2} x {GAN_T} a rank, against one rank on the "
+        f"{b} x {GAN_T} batch, {TWO_RANK_STEPS} steps, fp32 (TF32 off) then "
+        "bf16")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dist-rank", str(r), str(port), tmp])
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=400)
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"two-rank phase: exit codes "
+                             f"{[p.returncode for p in procs]}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    log(f"  two ranks done in {time.perf_counter() - t0:.1f} s")
+    batch = {"vil": torch.from_numpy(full).cuda()}
+
+    def flat(tensors):
+        return {str(i): t for i, t in enumerate(tensors)}
+
+    for mixed in (False, True):
+        tr = Trainer(dist_config(tmp, f"one_rank_{mixed}"),
+                     build_task(FAST_SHAPE, mixed))
+        state = tr.init_state()
+        want = two_rank_run(tr, state, batch)
+        one_ms = statistics.median(timed_steps(
+            lambda: tr._train_step(state, batch), DIST_TIMED)[0]) * 1e3
+        tr.close()
+        del tr, state
+        halves = two_halves_run(tmp, mixed, full)
+        got = ranks[0][mixed]
+        if ranks[1][mixed]["aux"] != got["aux"]:
+            raise AssertionError("the two ranks report different aux")
+        if any(not torch.equal(got["before"][k], ref["before"][k])
+               for ref in (want, halves) for k in want["before"]):
+            raise AssertionError("the runs start from other parameters")
+        grad_err = [rel_l2(flat(g), flat(w))
+                    for g, w in zip(got["grads"], want["grads"])]
+        # the witness: the two ranks against the same two halves in one
+        # process, and those halves' average against the whole batch's
+        half_grad_gap = max(float((a - b).abs().max()) for g, h in zip(
+            got["grads"], halves["grads"]) for a, b in zip(g, h))
+        half_par_gap = max(float((got["after"][k] - halves["after"][k])
+                                 .abs().max()) for k in want["after"])
+        upd_half = {k: halves["after"][k] - halves["before"][k]
+                    for k in want["after"]}
+        half_err = [rel_l2(flat(h), flat(w))
+                    for h, w in zip(halves["grads"], want["grads"])]
+        loss_err = max(abs(got["aux"][0][k] - want["aux"][0][k])
+                       / abs(want["aux"][0][k])
+                       for k in ("loss", "rec_loss", "g_loss", "disc_loss"))
+        worst = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
+                        zip(got["aux"], want["aux"]))
+                 for k in ("d_weight", "grad_norm")}
+        upd = {k: got["after"][k] - got["before"][k] for k in want["after"]}
+        upd_want = {k: want["after"][k] - want["before"][k]
+                    for k in want["after"]}
+        upd_err = rel_l2(upd, upd_want)
+        err = rel_l2(got["after"], want["after"])
+        upd_half_err = rel_l2(upd, upd_half)
+        par_half_err = rel_l2(got["after"], halves["after"])
+        tag = "bf16" if mixed else "fp32"
+        if not got["reduce_err"] <= 1e-6:
+            raise AssertionError(f"{tag}: the gradient average differs from "
+                                 f"the ranks' mean by {got['reduce_err']}")
+        log(f"  {tag}: against the two halves stepped in this process "
+            f"(threads, the same averages): step 1's gradients within "
+            f"{half_grad_gap:.3g} (abs), the update rel-L2 "
+            f"{upd_half_err:.3g}, the parameters within {half_par_gap:.3g} "
+            f"(abs, rel-L2 {par_half_err:.3g}); the halves' averaged "
+            f"gradients against the 16 x 4 batch's, both in this process: "
+            f"rel-L2 {half_err[0]:.3g} (generator), {half_err[1]:.3g} "
+            "(discriminator)")
+        if not (upd_half_err <= 1e-5 and par_half_err <= 1e-5):
+            raise AssertionError(
+                f"{tag}: the two-rank step departs from its two halves in "
+                f"one process: update rel-L2 {upd_half_err}, parameters "
+                f"{par_half_err}")
+        log(f"  {tag}: step 1's gradient averages the mean of the ranks' own "
+            f"gradients within {got['reduce_err']:.3g}; against one rank: "
+            f"step 1's averaged gradients rel-L2 {grad_err[0]:.3g} "
+            f"(generator), {grad_err[1]:.3g} (discriminator), its losses rel "
+            f"{loss_err:.3g}; d_weight rel {worst['d_weight']:.3g}, grad_norm "
+            f"rel {worst['grad_norm']:.3g} over {TWO_RANK_STEPS} steps; the "
+            f"update rel-L2 {upd_err:.3g}, the parameters rel-L2 {err:.3g}; "
+            f"{got['ms']:.2f} / {ranks[1][mixed]['ms']:.2f} ms a step on "
+            f"ranks 0 / 1 against {one_ms:.2f} ms for one rank on the whole "
+            "batch")
+        if not mixed and not (loss_err <= 1e-5
+                              and max(worst.values()) <= 1e-4):
+            raise AssertionError(
+                f"two-rank fp32 step: losses {loss_err}, {worst}")
+        del halves
+        torch.cuda.empty_cache()
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def log_free(what):
+    """Log how much of the card is free before ``what``, a process that
+    shares it with this one and with main's."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    log(f"  {free / 2**30:.1f} of {total / 2**30:.1f} GiB of the card free "
+        f"before {what}")
+
+
+def graft_phase():
+    """Phase 32: graft_entry_torch.entry()'s program once on the card, and
+    dryrun_multichip(1) (one process, NCCL)."""
+    import torch
+
+    import graft_entry_torch
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+
+    log("phase 32: graft_entry_torch.entry() (bench.py's fp32 Path-B program, "
+        "B=64) and dryrun_multichip(1)")
+    pipeline, (fc, frames) = graft_entry_torch.entry()
+    groupnorm.launches = 0
+    t0 = time.perf_counter()
+    out = pipeline(fc, frames)
+    check_frames(out, (BATCH, T_OUT, 1, HW, HW))
+    log(f"  entry(): finite {tuple(out.shape)} in "
+        f"{time.perf_counter() - t0:.2f} s (first call), "
+        f"{groupnorm.launches} GN launches")
+    if groupnorm.launches != 42:
+        raise AssertionError(f"entry(): {groupnorm.launches} GN launches")
+    del pipeline, fc, frames, out
+    # the dryrun's process shares the card: hand back what the fp32 B=64
+    # call cached (about 41 GiB), or its NCCL communicator may find no room
+    torch.cuda.empty_cache()
+    log_free("dryrun_multichip(1)")
+    graft_entry_torch.dryrun_multichip(1, device="cuda")
+
+
+def dist_phase():
+    """Phases 27-32 in a fresh process (``chip_smoke.py --dist``, run after
+    --cli): the distributed layer on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the mesh steps are held to the non-mesh step's bits
+    torch.backends.cudnn.deterministic = True
+    groupnorm.build()
+    t0 = time.perf_counter()
+    init_distributed(f"localhost:{free_port()}", 1, 0)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+    mesh = make_mesh(("dp",))
+    log(f"NCCL process group and mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+        f" in {time.perf_counter() - t0:.2f} s")
+    log_free("phase 27")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        dist_serving_phase(mesh, tmp)
+        torch.cuda.empty_cache()
+        dist_train_phase(mesh, tmp)
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()   # the two ranks share the card
+        log_free("phase 31's two ranks")
+        two_rank_phase(tmp)
+        graft_phase()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phases 27-32: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -3743,6 +4482,8 @@ def main():
         latent_phase(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # the fresh processes below share the card with this one
+    torch.cuda.empty_cache()
 
     # ------------------------------- 12.-13. GAN training, a fresh process
     subprocess.run([sys.executable, os.path.abspath(__file__), "--train"],
@@ -3759,6 +4500,9 @@ def main():
                             shared], check=True)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
+    # ------------------------ 27.-32. the distributed layer, a fresh process
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--dist"],
+                   check=True)
 
     # ------------------------------ 9.-11. quantized serving, verification
     ref_calls, fast_calls, int8_launches, _ = int8_serving_phase(
@@ -3805,5 +4549,6 @@ def main():
 if __name__ == "__main__":
     sys.exit({"--profile": profile_phase, "--train": train_phase,
               "--zoo": zoo_phase, "--data": data_phase,
-              "--cli": cli_phase}.get(
+              "--cli": cli_phase, "--dist": dist_phase,
+              "--dist-rank": dist_rank_phase}.get(
         sys.argv[1] if sys.argv[1:] else "", main)())

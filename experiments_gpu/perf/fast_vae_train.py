@@ -12,7 +12,8 @@ kernel's plain version.
     python experiments_gpu/perf/fast_vae_train.py      # on the card
 
 ``build_step(vae_kwargs, mixed)`` returns (step, state, n_params) with
-``step(state, batch) -> (state, aux)``; ``chip_smoke.py`` drives it.
+``step(state, batch) -> (state, aux)``; ``build_task`` gives the task for a
+``Trainer`` (``TRAINER_OPTIM``). ``chip_smoke.py`` drives both.
 """
 
 from __future__ import annotations
@@ -47,13 +48,17 @@ REFERENCE_SHAPE = dict(block_out_channels=(64, 128, 256, 512, 512))
 FAST_SHAPE = dict(pixel_unshuffle=4, block_out_channels=(128, 256, 512))
 
 
-def build_step(vae_kwargs, mixed=True, *, device=None, seed=0):
-    """The two-optimizer VAE-GAN step on an ``AutoencoderKL(**vae_kwargs)``
-    and ``NLayerDiscriminator(1, 64, 3)``: the generator's optimizer is
-    clip 1.0 + AdamW(1e-4, weight decay 1e-4, optax's default), the
-    discriminator's Adam(4.5e-5, 0.5, 0.9); kl_weight 1e-6, disc_weight
-    0.5, disc_start 0. Returns (step, state, n_params)."""
-    dev = resolve_device(device)
+# the generator's optimizer as a Trainer config (training/trainer.py::
+# build_optimizer): clip 1.0 + AdamW(1e-4, weight decay 1e-4)
+TRAINER_OPTIM = dict(lr=1e-4, schedule="constant", weight_decay=1e-4,
+                     grad_clip=1.0)
+
+
+def build_task(vae_kwargs, mixed=True):
+    """The two-optimizer VAE-GAN task on an ``AutoencoderKL(**vae_kwargs)``
+    and ``NLayerDiscriminator(1, 64, 3)``: the discriminator's optimizer is
+    Adam(4.5e-5, 0.5, 0.9); kl_weight 1e-6, disc_weight 0.5, disc_start 0.
+    Train it with ``TRAINER_OPTIM`` (or ``build_step``)."""
 
     def gen_init(s, d):
         return AutoencoderKL(in_channels=1, out_channels=1,
@@ -66,7 +71,7 @@ def build_step(vae_kwargs, mixed=True, *, device=None, seed=0):
                                return_posterior=True)
         return recon, posterior.kl()
 
-    task = make_vae_gan_task(
+    return make_vae_gan_task(
         name="fast_vae_train", generator_apply=generator_apply,
         gen_init=gen_init, disc_apply=lambda d, f: d(f),
         disc_init=lambda s, d: NLayerDiscriminator(1, 64, 3, device=d,
@@ -74,7 +79,16 @@ def build_step(vae_kwargs, mixed=True, *, device=None, seed=0):
         disc_tx=adam(4.5e-5, b1=0.5, b2=0.9),
         last_layer_path="decoder.conv_out.weight",
         kl_weight=1e-6, disc_weight=0.5, disc_start=0, mixed_precision=mixed)
-    tx = adamw(1e-4, weight_decay=1e-4, grad_clip=1.0)
+
+
+def build_step(vae_kwargs, mixed=True, *, device=None, seed=0):
+    """``build_task``'s step with its generator optimizer (clip 1.0 +
+    AdamW(1e-4, weight decay 1e-4, optax's default)) on a state made from
+    ``seed``. Returns (step, state, n_params)."""
+    dev = resolve_device(device)
+    task = build_task(vae_kwargs, mixed)
+    tx = adamw(TRAINER_OPTIM["lr"], weight_decay=TRAINER_OPTIM["weight_decay"],
+               grad_clip=TRAINER_OPTIM["grad_clip"])
     params = task.init_params(seed, dev)
     state = TrainState(step=0, params=params,
                        opt_state=tx.init(list(params.parameters())),

@@ -140,3 +140,56 @@ def test_kernel_at_custom_akl_shapes(dtype, cuda_device):
             assert _within_tolerance(got, want), (c, h, w, silu)
         assert graph_node_types(lambda: pgn.group_norm_silu_cuda(
             x, s, b, 32, 1e-6, True)) == [KERNEL_NODE]
+
+
+def _op_args(shape, groups, channels_last, device, requires_grad=True):
+    x, s, b = _inputs(shape, torch.float32, channels_last, device)
+    return (x.requires_grad_(requires_grad), s.requires_grad_(requires_grad),
+            b.requires_grad_(requires_grad), groups, 1e-6, True)
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_custom_op_registration_on_cpu(channels_last):
+    """torch.ops.wftk.group_norm_silu: its fake implementation (shape,
+    strides, dtype), its registered autograd and its schema pass
+    torch.library.opcheck on CPU tensors (the op's CPU implementation is
+    the plain version); the op's output and gradients are the plain
+    version's."""
+    args = _op_args((2, 16, 5, 7), 4, channels_last, torch.device("cpu"))
+    torch.library.opcheck(torch.ops.wftk.group_norm_silu.default, args)
+    y = torch.ops.wftk.group_norm_silu(*args)
+    want = pgn.group_norm_silu_reference(*args)
+    assert torch.equal(y, want)
+    g = torch.randn_like(y)
+    got = torch.autograd.grad(y, args[:3], g)
+    ref = torch.autograd.grad(want, args[:3], g)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_custom_op_on_the_card(channels_last, cuda_device):
+    """On the card the op launches the kernel once a call (the launch
+    count; in a CUDA graph one kernel node, three on NCHW's two-pass path),
+    passes opcheck, gives the kernel's bits, and traces under torch.export
+    (the fake implementation) to a graph that calls it."""
+    args = _op_args((2, 64, 16, 16), 32, channels_last, cuda_device)
+    torch.library.opcheck(torch.ops.wftk.group_norm_silu.default, args)
+    before = pgn.launches
+    y = pgn.group_norm_silu(*args)
+    assert pgn.launches == before + 1
+    assert torch.equal(y, pgn.group_norm_silu_cuda(*[
+        a.detach() if isinstance(a, torch.Tensor) else a for a in args]))
+    assert _within_tolerance(y, pgn.group_norm_silu_reference(*args))
+    plain = [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
+    assert graph_node_types(lambda: pgn.group_norm_silu(*plain)) == [
+        KERNEL_NODE] * (1 if channels_last else 3)
+
+    class Norm(torch.nn.Module):
+        def forward(self, x):
+            return pgn.group_norm_silu(x, plain[1], plain[2], 32)
+
+    program = torch.export.export(Norm(), (plain[0],))
+    assert "wftk.group_norm_silu" in str(program.graph)
+    assert torch.equal(program.module()(plain[0]), y.detach())

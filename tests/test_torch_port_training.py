@@ -326,11 +326,12 @@ def test_validate_loss_only_and_unported_parts(tmp_path):
     out = t2.validate(t2.init_state(), val, step=0)
     assert out["SSIM"] == pytest.approx(1.0) and out["CSI_0"] == pytest.approx(1.0)
     t2.close()
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        ptrainer.Trainer(cfg, _tiny_task(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        ptrainer.Trainer(cfg.merge({"trainer": {"fsdp": True}}), _tiny_task(),
-                         device="cpu")
+    # trainer.fsdp without a mesh is ignored, as in JAX (the mesh paths
+    # are tests/test_torch_port_parallel.py's)
+    t3 = ptrainer.Trainer(cfg.merge({"trainer": {"fsdp": True}}),
+                          _tiny_task(), device="cpu")
+    assert not t3.fsdp and t3.batch_sharding() is None
+    t3.close()
     logger = RunLogger(str(tmp_path / "log"))
     logger.log_images(np.zeros((1, 2, 8, 8)), np.ones((1, 2, 1, 8, 8)),
                       "val panels", 0)

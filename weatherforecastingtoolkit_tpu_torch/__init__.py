@@ -37,7 +37,11 @@ Ported so far:
   * the SEVIR data layer (``data/``: catalog, windows, HDF5 and packed-cache
     datasets, ``SEVIRDataModule``, preflight, download; numpy on the host,
     no pandas, h5py only where HDF5 is read or written), profiling hooks,
-    and the training command line (``experiments_gpu/common.py``).
+    and the training command line (``experiments_gpu/common.py``);
+  * the distributed layer (``parallel/``: the process group and mesh, data
+    parallelism, FSDP, tensor-parallel dense layers, dp-sharded and
+    member-parallel serving, ``torch.export`` of the pipeline) and
+    ``Trainer(mesh=...)`` with ``trainer.fsdp``.
 """
 
 __version__ = "0.1.0"
@@ -68,6 +72,8 @@ _LAZY = {
     "EvalReport": ".evaluation",
     "SEVIRDataModule": ".data.datamodule",
     "SEVIRDataset": ".data.dataset",
+    "make_mesh": ".parallel.mesh",
+    "make_dp_serving_fn": ".parallel.serving",
 }
 
 

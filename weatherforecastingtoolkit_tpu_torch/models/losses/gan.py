@@ -18,13 +18,14 @@ package's params across.
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import global_sum
 from ...utils.device import DeviceLike, resolve_device
 
 
@@ -43,10 +44,16 @@ class ActNorm(nn.Module):
     @staticmethod
     def stats_from(x: torch.Tensor):
         """(loc, scale) of a data batch (B, C, H, W), each (1, C, 1, 1):
-        -mean and 1 / (std + 1e-6), std the population std as ``jnp.std``."""
-        mean = torch.mean(x, dim=(0, 2, 3), keepdim=True)
-        std = torch.std(x, dim=(0, 2, 3), keepdim=True, unbiased=False)
-        return -mean, 1.0 / (std + 1e-6)
+        -mean and 1 / (std + 1e-6), std the population std as ``jnp.std``.
+        Inside a data-parallel step (``parallel/mesh.py::data_parallel``)
+        the statistics are those of the global batch, as JAX's jitted init
+        takes them over the sharded batch."""
+        dims = (0, 2, 3)
+        n = global_sum(x.new_tensor(float(x.numel() // x.shape[1])))
+        mean = global_sum(torch.sum(x, dim=dims, keepdim=True)) / n
+        var = global_sum(torch.sum((x - mean) ** 2, dim=dims,
+                                   keepdim=True)) / n
+        return -mean, 1.0 / (torch.sqrt(var) + 1e-6)
 
 
 class NLayerDiscriminator(nn.Module):
@@ -131,13 +138,15 @@ def adopt_weight(weight: float, global_step: int, threshold: int = 0,
 
 
 def adaptive_weight(nll_grad_last: torch.Tensor, g_grad_last: torch.Tensor,
-                    disc_weight: float = 1.0) -> torch.Tensor:
+                    disc_weight: float = 1.0,
+                    norm: Optional[Callable] = None) -> torch.Tensor:
     """Balance the reconstruction and adversarial gradients on the
     generator's last layer: ||grad rec|| / (||grad adv|| + 1e-4), clipped to
     [0, 1e4], detached, times ``disc_weight``. Norms do not depend on the
-    layout, so the torch weight gives JAX's value."""
-    norm_nll = torch.linalg.vector_norm(nll_grad_last.reshape(-1))
-    norm_g = torch.linalg.vector_norm(g_grad_last.reshape(-1))
+    layout, so the torch weight gives JAX's value. ``norm`` replaces the L2
+    norm (the global norm of a sharded last layer's gradient)."""
+    norm = norm or (lambda g: torch.linalg.vector_norm(g.reshape(-1)))
+    norm_nll, norm_g = norm(nll_grad_last), norm(g_grad_last)
     w = norm_nll / (norm_g + 1e-4)
     # jnp.clip as minimum(maximum(.)); the value is detached anyway
     w = torch.minimum(torch.maximum(w, w.new_zeros(())), w.new_full((), 1e4))

@@ -2,7 +2,9 @@
 weatherforecastingtoolkit_tpu/models/vae/distributions.py).
 
 Mean/logvar chunked on the channel axis, logvar clamped to [-30, 20];
-``sample`` draws from an explicit ``torch.Generator``.
+``sample`` draws from an explicit ``torch.Generator`` (inside a
+data-parallel step, for the global batch, keeping this rank's rows:
+``parallel/mesh.py::randn_rows``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from ...parallel.mesh import randn_rows
 
 
 class DiagonalGaussianDistribution:
@@ -29,8 +33,8 @@ class DiagonalGaussianDistribution:
 
     def sample(self, generator: Optional[torch.Generator] = None
                ) -> torch.Tensor:
-        noise = torch.randn(self.mean.shape, generator=generator,
-                            device=self.mean.device, dtype=self.mean.dtype)
+        noise = randn_rows(self.mean.shape, generator, self.mean.device,
+                           self.mean.dtype)
         return self.mean + self.std * noise
 
     def mode(self) -> torch.Tensor:

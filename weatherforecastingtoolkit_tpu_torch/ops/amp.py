@@ -22,6 +22,8 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..parallel.fsdp import unsharded
+
 
 def _tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, torch.Tensor):
@@ -37,9 +39,10 @@ def cast_floats(tree: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
     """Cast every fp32 tensor leaf of a tensor, dict, list or tuple to
     ``dtype``; everything else unchanged. An ``nn.Module`` gives the dict
     {name: parameter} of its parameters, cast: the dict ``functional_call``
-    takes. The casts are differentiable."""
+    takes; an FSDP shard (``parallel/fsdp.py``) is gathered first, so the
+    cast rounds the full parameter. The casts are differentiable."""
     if isinstance(tree, nn.Module):
-        tree = dict(tree.named_parameters())
+        tree = {k: unsharded(v) for k, v in tree.named_parameters()}
     return _tree_map(lambda a: a.to(dtype) if a.dtype == torch.float32 else a,
                      tree)
 

@@ -21,10 +21,14 @@ but the kernel and allocates only y. NCHW, unaligned views and shapes a
 cluster cannot hold take a two-pass path (three launches).
 
 Dispatch: a CPU tensor takes ``group_norm_silu_reference``; a CUDA tensor
-launches the kernel or raises. The kernel is built with ``nvcc`` for
-``sm_90a`` at first use into ``_build/`` (keyed by a hash of the source) and
-bound with ``ctypes``. ``launches`` counts calls that launched it,
-``two_pass_launches`` those of them on the two-pass path.
+goes through the custom op ``torch.ops.wftk.group_norm_silu``, which
+launches the kernel or raises. The op (``torch.library.custom_op``) has a
+fake implementation (the output's shape, strides and dtype), so
+``torch.export`` and fake tensors trace through it, and its registered
+autograd is the plain version's (``backward``). The kernel is built with
+``nvcc`` for ``sm_90a`` at first use into ``_build/`` (keyed by a hash of
+the source) and bound with ``ctypes``. ``launches`` counts calls that
+launched it, ``two_pass_launches`` those of them on the two-pass path.
 """
 
 from __future__ import annotations
@@ -207,8 +211,7 @@ def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
     else:
         raise ValueError("x must be contiguous NCHW or channels_last")
     lib = build()
-    y = torch.empty_like(x, memory_format=torch.channels_last if channels_last
-                         else torch.contiguous_format)
+    y = torch.empty_like(x, memory_format=_format(x))
     if x.numel() == 0:
         return y
     s, b = _param(scale, x), _param(bias, x)
@@ -251,30 +254,58 @@ def group_norm_silu_cuda(x: torch.Tensor, scale: torch.Tensor,
     return y
 
 
-class GroupNormSiLUFunction(torch.autograd.Function):
-    """Forward: the kernel (plain version for a CPU tensor). Backward: the
-    autograd of the plain version, as the JAX ``_bwd`` differentiates
-    ``_gn_silu_reference``."""
+def _format(x: torch.Tensor) -> torch.memory_format:
+    """The memory format of the kernel's output: NCHW when x is contiguous,
+    else channels_last (the kernel takes nothing else)."""
+    return (torch.contiguous_format if x.is_contiguous()
+            else torch.channels_last)
 
-    @staticmethod
-    def forward(ctx, x, scale, bias, groups, eps, silu):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.args = (groups, eps, silu)
-        if x.device.type == "cpu":
-            return group_norm_silu_reference(x, scale, bias, groups, eps, silu)
-        return group_norm_silu_cuda(x, scale, bias, groups, eps, silu)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, scale, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(need) for t, need in
-                      zip((x, scale, bias), ctx.needs_input_grad[:3])]
-            y = group_norm_silu_reference(*leaves, *ctx.args).float()
-            wanted = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad(y, wanted, g.float()))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in leaves) + (None, None, None)
+@torch.library.custom_op("wftk::group_norm_silu", mutates_args=())
+def _group_norm_silu_op(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, groups: int, eps: float,
+                        silu: bool) -> torch.Tensor:
+    """The op's CPU implementation: the plain version in the kernel's
+    memory format (``group_norm_silu`` sends CPU tensors to the plain
+    version directly; the op takes them for its checks)."""
+    return group_norm_silu_reference(x, scale, bias, groups, eps, silu
+                                     ).contiguous(memory_format=_format(x))
+
+
+@_group_norm_silu_op.register_kernel("cuda")
+def _(x, scale, bias, groups, eps, silu):
+    return group_norm_silu_cuda(x, scale, bias, groups, eps, silu)
+
+
+@_group_norm_silu_op.register_fake
+def _(x, scale, bias, groups, eps, silu):
+    return torch.empty_like(x, memory_format=_format(x))
+
+
+def _setup_context(ctx, inputs, output):
+    x, scale, bias, groups, eps, silu = inputs
+    ctx.save_for_backward(x, scale, bias)
+    ctx.args = (groups, eps, silu)
+
+
+def backward(ctx, g):
+    """The autograd of the plain version, as the JAX ``_bwd``
+    differentiates ``_gn_silu_reference``."""
+    x, scale, bias = ctx.saved_tensors
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) for t, need in
+                  zip((x, scale, bias), ctx.needs_input_grad[:3])]
+        y = group_norm_silu_reference(*leaves, *ctx.args).float()
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, g.float()))
+    return tuple(next(grads) if t.requires_grad else None
+                 for t in leaves) + (None, None, None)
+
+
+# looked up at each call, so a caller may wrap ``backward`` (chip_smoke.py
+# times it inside a training step)
+_group_norm_silu_op.register_autograd(lambda ctx, g: backward(ctx, g),
+                                      setup_context=_setup_context)
 
 
 def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -282,6 +313,9 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     silu: bool = True) -> torch.Tensor:
     """GroupNorm + optional SiLU over (N, C, H, W), NCHW or channels_last.
 
-    A CPU tensor runs the plain version; a CUDA tensor the Hopper kernel.
-    Differentiable in x, scale and bias."""
-    return GroupNormSiLUFunction.apply(x, scale, bias, groups, eps, silu)
+    A CPU tensor runs the plain version; a CUDA tensor the Hopper kernel
+    through the custom op. Differentiable in x, scale and bias."""
+    if x.device.type == "cpu":
+        return group_norm_silu_reference(x, scale, bias, groups, eps, silu)
+    return torch.ops.wftk.group_norm_silu(x, scale, bias, groups, float(eps),
+                                          bool(silu))

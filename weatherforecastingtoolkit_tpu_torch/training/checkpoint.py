@@ -16,6 +16,14 @@ its state, a tensor a CPU copy. Each step is the directory
 and renamed into place, so a reader never sees half a step. Restoring holds
 the snapshot to a template of the same structure (keys, shapes, dtypes) and
 loads it into the template's modules and generators in place.
+
+Under a mesh (``Trainer(mesh=...)``) a replicated state is written by rank 0
+alone as above while the other ranks wait at a barrier, and read by every
+rank. A state holding FSDP shards (``parallel/fsdp.py``) is written by every
+rank, each its own shards, through ``torch.distributed.checkpoint`` into the
+same ``checkpoints/<step>/`` (``.metadata`` plus the ranks' files), and
+read back straight into a sharded template's shards: the full state never
+materialises.
 """
 
 from __future__ import annotations
@@ -31,8 +39,12 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import is_sharded
 
 _FILE = "state.pt"
+_DCP_META = ".metadata"   # torch.distributed.checkpoint's index file
 
 
 def run_dir_for(experiment_path: str, experiment_name: str, run_id: str) -> str:
@@ -133,10 +145,13 @@ class CheckpointManager:
     too; ``wait_until_finished`` re-raises a failed write."""
 
     def __init__(self, run_dir: str, max_to_keep: int = 5,
-                 async_save: bool = False):
+                 async_save: bool = False, mesh: Any = None):
         self.ckpt_dir = os.path.abspath(os.path.join(run_dir, "checkpoints"))
         self.max_to_keep = max_to_keep
-        self.async_save = async_save
+        self.mesh = mesh
+        # under a mesh every save ends at a barrier, so it is synchronous
+        self.async_save = async_save and mesh is None
+        self.rank0 = mesh is None or dist.get_rank() == 0
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -157,7 +172,16 @@ class CheckpointManager:
         if step in self.all_steps():
             if not force:
                 return  # periodic save already wrote this step
-            shutil.rmtree(self._step_dir(step))  # save_last: overwrite
+            self._barrier()   # every rank has seen the step before it goes
+            if self.rank0:
+                shutil.rmtree(self._step_dir(step))  # save_last: overwrite
+        if self.mesh is not None:
+            if _has_shards(state):
+                self._save_sharded(step, state)
+            elif self.rank0:
+                self._write(step, snapshot(state))
+            self._barrier()
+            return
         snap = snapshot(state)
         if self.async_save:
             self._thread = threading.Thread(target=self._write_guarded,
@@ -171,6 +195,26 @@ class CheckpointManager:
             self._write(step, snap)
         except BaseException as e:  # noqa: BLE001 — re-raised on wait
             self._error = e
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _save_sharded(self, step: int, state: Any) -> None:
+        """Every rank writes its shards (and rank 0 the replicated leaves)
+        into one temporary directory, renamed into place by rank 0."""
+        import torch.distributed.checkpoint as dcp
+
+        tmp = os.path.join(self.ckpt_dir, f".{step}.tmp")
+        if self.rank0:
+            shutil.rmtree(tmp, ignore_errors=True)
+        self._barrier()
+        dcp.save(_dcp_entries(state), checkpoint_id=tmp)
+        self._barrier()
+        if self.rank0:
+            os.replace(tmp, self._step_dir(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
     def _write(self, step: int, snap: Any) -> None:
         tmp = os.path.join(self.ckpt_dir, f".{step}.tmp-{os.getpid()}")
@@ -190,6 +234,8 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"No checkpoints in {self.ckpt_dir}")
+        if _has_shards(target):
+            return restore_sharded(self._step_dir(step), target)
         saved = self.load(step)
         _check(target, saved)
         return _restore(target, saved)
@@ -207,7 +253,7 @@ class CheckpointManager:
 
 
 def find_latest_ckpt(experiment_path: str, experiment_name: str, target: Any,
-                     alternates: Tuple = (),
+                     alternates: Tuple = (), mesh: Any = None,
                      ) -> Tuple[Optional[Any], Optional[str], Optional[int]]:
     """Scan every run's checkpoints newest-first; return the first one that
     restores: (state, run_id, step). Corrupt checkpoints are skipped.
@@ -216,12 +262,85 @@ def find_latest_ckpt(experiment_path: str, experiment_name: str, target: Any,
     each candidate after ``target`` fails, newest candidate first, so a run
     whose newest checkpoint has a different-but-convertible structure (e.g.
     ema_decay toggled mid-run) resumes from that newest step via
-    ``convert_fn(restored)`` instead of falling back to an older one."""
-    base = os.path.join(experiment_path, "outputs", experiment_name, "runs")
-    if not os.path.isdir(base):
-        return None, None, None
+    ``convert_fn(restored)`` instead of falling back to an older one.
 
-    candidates = []  # (mtime, run_id, run_dir, step)
+    Under a ``mesh`` every rank walks rank 0's list of candidates, and a
+    candidate (with a template) is taken only when every rank restored it
+    with that template (one all-gather an attempt), so all ranks resume the
+    same run, step and optimizer state, and a collective sharded read is
+    never left waiting for a rank that moved on."""
+    base = os.path.join(experiment_path, "outputs", experiment_name, "runs")
+    candidates = (_candidates(base) if mesh is None or dist.get_rank() == 0
+                  else None)
+    if mesh is not None:
+        box = [candidates]
+        dist.broadcast_object_list(box, src=0)
+        candidates = box[0]
+
+    templates = [(target, None)] + list(alternates)
+    mismatches = []
+    for run_id, run_dir, step in candidates:
+        step_dir = os.path.join(run_dir, "checkpoints", str(step))
+        if os.path.exists(os.path.join(step_dir, _DCP_META)):
+            # sharded: restore straight into each template's shards
+            for tmpl, convert in templates:
+                if not _has_shards(tmpl):
+                    continue
+                err = None
+                try:
+                    restored = restore_sharded(step_dir, tmpl)
+                except Exception as e:  # noqa: BLE001 — corrupt or mismatch
+                    err = f"{type(e).__name__}: {str(e)[:200]}"
+                if _agreed(err is None, mesh) is True:
+                    return (convert(restored) if convert is not None
+                            else restored, run_id, step)
+                print(f"[ckpt] skipping run-{run_id} step {step}: "
+                      f"{err or 'another rank could not restore it'}")
+            continue
+        saved, choice, first_err = None, None, None
+        try:
+            saved = CheckpointManager(run_dir).load(step)
+        except Exception as e:  # noqa: BLE001 — unreadable == corrupt
+            first_err = (f"corrupt/unreadable ({type(e).__name__}: "
+                         f"{str(e)[:200]})")
+        for i, (tmpl, _) in enumerate(templates if saved is not None else ()):
+            try:
+                _check(tmpl, saved)
+            except ValueError as e:
+                first_err = first_err or e
+                continue
+            choice = i
+            break
+        agreed = _agreed(choice, mesh)
+        if agreed is not None:
+            tmpl, convert = templates[agreed]
+            restored = _restore(tmpl, saved)
+            return (convert(restored) if convert is not None else restored,
+                    run_id, step)
+        if saved is None:
+            print(f"[ckpt] skipping run-{run_id} step {step}: {first_err}")
+        elif choice is not None:
+            print(f"[ckpt] skipping run-{run_id} step {step}: another rank "
+                  "could not restore it")
+        else:
+            print(f"[ckpt] skipping run-{run_id} step {step}: TEMPLATE "
+                  f"MISMATCH ({str(first_err)[:200]})")
+            mismatches.append((run_id, step, str(first_err)))
+    if mismatches:
+        print("[ckpt] WARNING: checkpoints exist but NONE match the resume "
+              "template — this is a model/optimizer/task structure change, "
+              "not corruption. Resuming from scratch would lose "
+              f"{len(mismatches)} checkpoint(s); first error:\n"
+              f"  {mismatches[0][2][:300]}")
+    return None, None, None
+
+
+def _candidates(base: str) -> list:
+    """Every run's checkpoint steps under ``base``, newest first:
+    [(run_id, run_dir, step)]."""
+    if not os.path.isdir(base):
+        return []
+    found = []  # (mtime, run_id, run_dir, step)
     for d in os.listdir(base):
         m = re.match(r"run-(.+)", d)
         ckpt_root = os.path.join(base, d, "checkpoints")
@@ -230,39 +349,109 @@ def find_latest_ckpt(experiment_path: str, experiment_name: str, target: Any,
         for item in os.listdir(ckpt_root):
             step_dir = os.path.join(ckpt_root, item)
             if item.isdigit() and os.path.isdir(step_dir):
-                candidates.append((os.path.getmtime(step_dir), m.group(1),
-                                   os.path.join(base, d), int(item)))
-    candidates.sort(reverse=True)
+                found.append((os.path.getmtime(step_dir), m.group(1),
+                              os.path.join(base, d), int(item)))
+    return [c[1:] for c in sorted(found, reverse=True)]
 
-    templates = [(target, None)] + list(alternates)
-    mismatches = []
-    for _, run_id, run_dir, step in candidates:
-        try:
-            saved = CheckpointManager(run_dir).load(step)
-        except Exception as e:  # noqa: BLE001 — unreadable == corrupt
-            print(f"[ckpt] skipping run-{run_id} step {step}: corrupt/"
-                  f"unreadable ({type(e).__name__}: {str(e)[:200]})")
-            continue
-        first_err = None
-        for tmpl, convert in templates:
-            try:
-                _check(tmpl, saved)
-            except ValueError as e:
-                first_err = first_err or e
-                continue
-            restored = _restore(tmpl, saved)
-            return (convert(restored) if convert is not None else restored,
-                    run_id, step)
-        print(f"[ckpt] skipping run-{run_id} step {step}: TEMPLATE MISMATCH "
-              f"({str(first_err)[:200]})")
-        mismatches.append((run_id, step, str(first_err)))
-    if mismatches:
-        print("[ckpt] WARNING: checkpoints exist but NONE match the resume "
-              "template — this is a model/optimizer/task structure change, "
-              "not corruption. Resuming from scratch would lose "
-              f"{len(mismatches)} checkpoint(s); first error:\n"
-              f"  {mismatches[0][2][:300]}")
-    return None, None, None
+
+def _agreed(value: Any, mesh: Any) -> Any:
+    """``value`` when every rank holds the same one (one all-gather over
+    the group), else None; ``value`` itself without a mesh."""
+    if mesh is None:
+        return value
+    values = [None] * dist.get_world_size()
+    dist.all_gather_object(values, value)
+    return value if all(v == value for v in values) else None
+
+
+def _has_shards(obj: Any) -> bool:
+    if isinstance(obj, torch.Tensor):
+        return is_sharded(obj)
+    if isinstance(obj, torch.nn.Module):
+        return any(is_sharded(p) for p in obj.parameters())
+    if dataclasses.is_dataclass(obj):
+        return any(_has_shards(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, Mapping):
+        return any(_has_shards(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return any(_has_shards(v) for v in obj)
+    return False
+
+
+def _dcp_tensor(t: torch.Tensor):
+    """A leaf as ``torch.distributed.checkpoint`` takes it, sharing t's
+    storage (a load writes into it): a shard as the DTensor it is a part of
+    (its dim over 'dp'), anything else as it is (replicated)."""
+    info = getattr(t, "_fsdp", None)
+    if info is None:
+        return t.detach()
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    placements = [Shard(info.dim) if name == "dp" else Replicate()
+                  for name in info.mesh.mesh_dim_names]
+    stride = torch.empty(info.shape, device="meta").stride()
+    return DTensor.from_local(t.detach(), info.mesh, placements,
+                              run_check=False, shape=torch.Size(info.shape),
+                              stride=stride)
+
+
+def _dcp_entries(obj: Any, path: str = "state", out=None) -> dict:
+    """The flat {path: leaf} that torch.distributed.checkpoint saves and
+    loads: modules give their state_dict's tensors (the shards), a
+    generator its state."""
+    out = {} if out is None else out
+    if isinstance(obj, torch.Tensor):
+        out[path] = _dcp_tensor(obj)
+    elif isinstance(obj, torch.nn.Module):
+        for k, v in obj.state_dict(keep_vars=True).items():
+            out[f"{path}/{k}"] = _dcp_tensor(v)
+    elif isinstance(obj, torch.Generator):
+        out[path] = obj.get_state()
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            _dcp_entries(getattr(obj, f.name), f"{path}/{f.name}", out)
+    elif isinstance(obj, Mapping):
+        for k, v in obj.items():
+            _dcp_entries(v, f"{path}/{k}", out)
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _dcp_entries(v, f"{path}/{i}", out)
+    elif obj is not None:
+        out[path] = obj
+    return out
+
+
+def _dcp_apply(template: Any, flat: dict, path: str = "state") -> Any:
+    """``template`` with the scalars of a loaded ``flat`` (its tensors were
+    loaded in place)."""
+    if isinstance(template, torch.Generator):
+        template.set_state(flat[path])
+        return template
+    if isinstance(template, (torch.Tensor, torch.nn.Module)) or template is None:
+        return template
+    if dataclasses.is_dataclass(template):
+        return dataclasses.replace(template, **{
+            f.name: _dcp_apply(getattr(template, f.name), flat,
+                               f"{path}/{f.name}")
+            for f in dataclasses.fields(template)})
+    if isinstance(template, Mapping):
+        return {k: _dcp_apply(v, flat, f"{path}/{k}")
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_dcp_apply(v, flat, f"{path}/{i}")
+                              for i, v in enumerate(template))
+    return flat[path]
+
+
+def restore_sharded(step_dir: str, template: Any) -> Any:
+    """Load a sharded checkpoint into ``template`` (built sharded on every
+    rank, collectively): each rank reads its own shards in place."""
+    import torch.distributed.checkpoint as dcp
+
+    flat = _dcp_entries(template)
+    dcp.load(flat, checkpoint_id=step_dir)
+    return _dcp_apply(template, flat)
 
 
 def strip_prefixes(key: str, prefixes=("module.", "net.")) -> str:

@@ -43,6 +43,7 @@ from ..models.losses.gan import (adaptive_weight, adopt_weight,
                                  feature_matching_distance, hinge_d_loss,
                                  vanilla_d_loss)
 from ..ops.amp import cast_call
+from ..parallel.mesh import is_sharded, reduce_gradients
 from .optim import global_norm
 from .tasks import _frames, dequantize
 from .trainer import Task, TrainState
@@ -63,8 +64,10 @@ class VAEGANParams(nn.Module):
 
 def leaf_by_path(module: nn.Module, path: str) -> torch.Tensor:
     """The parameter named ``path`` ("dec_out.weight"): the port's form of
-    the JAX key path ("params", "dec_out", "kernel")."""
-    return module.get_parameter(path)
+    the JAX key path ("params", "dec_out", "kernel"); an FSDP shard is
+    returned as the shard the optimizer holds."""
+    prefix, _, name = path.rpartition(".")
+    return module.get_submodule(prefix)._parameters[name]
 
 
 def pixel_loss_map(kind: str) -> Callable:
@@ -204,12 +207,23 @@ def make_vae_gan_task(
         wrt = gen_params + ([logvar] if use_kl else [])
         rec_grads = _grads(rec_total, wrt, retain_graph=True)
         adv_grads = _grads(g_loss, gen_params)
-        d_w = adaptive_weight(rec_grads[i_last], adv_grads[i_last],
-                              disc_weight)
+        # data parallel: the adaptive weight and the updates see the global
+        # gradients, as in JAX's sharded step. The weight needs only the
+        # last layer's two; the update is linear in both, so the combined
+        # gradient is averaged once
+        reduce_gradients([rec_grads[i_last], adv_grads[i_last]], [last, last])
+        d_w = adaptive_weight(
+            rec_grads[i_last], adv_grads[i_last], disc_weight,
+            norm=(lambda g: global_norm([g], [last])) if is_sharded(last)
+            else None)
         gate = adopt_weight(disc_factor, state.step, disc_start)
         coef = d_w * gate
         gen_grads = list(torch._foreach_add(
             rec_grads[:len(gen_params)], torch._foreach_mul(adv_grads, coef)))
+        rest = [i for i in range(len(wrt)) if i != i_last]
+        reduce_gradients(
+            [(gen_grads + rec_grads[len(gen_params):])[i] for i in rest],
+            [wrt[i] for i in rest])
 
         # the discriminator's gradient on the detached reconstruction, gated
         # by disc_start: zero gradients keep Adam's moments at zero
@@ -221,6 +235,8 @@ def make_vae_gan_task(
             d_loss = d_loss_fn(logits_real, logits_fake)
         d_grads = (_grads(d_loss, disc_params) if d_gate
                    else [torch.zeros_like(p) for p in disc_params])
+        if d_gate:
+            reduce_gradients(d_grads, disc_params)
 
         # the updates, after every gradient is taken
         grad_of = {id(p): g for p, g in zip(wrt, gen_grads + rec_grads[
@@ -240,7 +256,8 @@ def make_vae_gan_task(
                     "disc_loss": (d_gate * d_loss).detach(),
                     "logits_real": torch.mean(logits_real).detach(),
                     "logits_fake": torch.mean(logits_fake).detach(),
-                    "disc_factor": gate, "grad_norm": global_norm(gen_grads)})
+                    "disc_factor": gate,
+                    "grad_norm": global_norm(gen_grads, gen_params)})
         state.step += 1
         return state, aux
 

@@ -28,6 +28,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..parallel.mesh import DTensor, dp_group, is_sharded, local
+
 Schedule = Callable[[int], float]
 
 
@@ -75,10 +77,38 @@ def one_cycle_schedule(start_lr: float, peak_lr: float, final_lr: float,
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over a list of tensors, on their device (no host sync)."""
-    return torch.linalg.vector_norm(torch.stack(
-        [n.float() for n in torch._foreach_norm(list(tensors))]))
+def global_norm(tensors: Sequence[torch.Tensor],
+                params: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """L2 norm over a list of tensors, on their device (no host sync).
+
+    Given the ``params`` the tensors are gradients of, the norm is global
+    over the shards: a gradient of an FSDP-sharded parameter
+    (``parallel/fsdp.py``) has its square summed over 'dp', one of a
+    tensor-parallel parameter (a DTensor) over the mesh axes it is split
+    on, and a replicated one counts once. Each leaf's norm is the square
+    root of its summed square, and the result the norm of the leaves'
+    norms, as unsharded: one rank gives the unsharded bits."""
+    tensors = list(tensors)
+    norms = [n.float() for n in torch._foreach_norm(
+        [local(t) for t in tensors])]
+    groups = {}   # the process groups a square sums over -> its indices
+    for i, p in enumerate(tensors if params is None else params):
+        if is_sharded(p):
+            groups.setdefault((dp_group(p._fsdp.mesh),), []).append(i)
+        elif isinstance(p, DTensor):
+            key = tuple(p.device_mesh.get_group(d) for d, pl in
+                        enumerate(p.placements) if pl.is_shard())
+            groups.setdefault(key, []).append(i)
+    for key, idx in groups.items():
+        if not key:
+            continue
+        squares = torch.stack([norms[i] for i in idx]) ** 2
+        for group in key:
+            torch.distributed.all_reduce(squares, group=group)
+        for i, sq in zip(idx, torch.sqrt(squares)):
+            norms[i] = sq
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def count_params(params: Union[torch.nn.Module, Sequence[torch.Tensor]]) -> int:
@@ -105,6 +135,7 @@ class AdamW:
         self.accumulate_steps = max(1, int(accumulate_steps))
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
+        params = [local(p) for p in params]
         state = {"count": 0, "mini_step": 0,
                  "mu": [torch.zeros_like(p) for p in params],
                  "nu": [torch.zeros_like(p) for p in params]}
@@ -116,6 +147,8 @@ class AdamW:
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                state: Dict) -> bool:
         k = self.accumulate_steps
+        held = params   # as given: the norm needs their shardings
+        params, grads = [local(p) for p in params], [local(g) for g in grads]
         if k > 1:
             # Welford mean of the micro-gradients, as MultiSteps
             acc, n = state["acc"], state["mini_step"]
@@ -126,7 +159,7 @@ class AdamW:
                 return False
             grads = acc
         if self.grad_clip is not None:
-            norm = global_norm(grads)
+            norm = global_norm(grads, held)
             scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                 self.grad_clip / norm)
             grads = torch._foreach_mul(grads, scale)

@@ -18,9 +18,19 @@ How the port's objects stand for the JAX ones:
     only, so the step itself makes no host sync.
 
 ``validate`` averages the loss and, for a task with an ``eval_fn``,
-``metrics.calc_metrics`` over the validation batches, as JAX's does. Not
-here yet: ``mesh`` (data parallelism) and ``trainer.fsdp`` wait for the
-distributed slice and raise.
+``metrics.calc_metrics`` over the validation batches, as JAX's does.
+
+Data parallelism: with ``mesh`` (``parallel/mesh.py::make_mesh``) every
+process is one 'dp' rank, its loader yields its own rows of the global
+batch, and the state is replicated (broadcast from rank 0). The step runs
+under ``data_parallel(mesh)``: the gradients are averaged over 'dp' in a
+few flattened buckets before the clip, the update and the EMA (a custom
+step such as the GAN's reduces its own), the noise is drawn for the global
+batch, and the aux scalars are averaged, so N ranks take the one-process
+step on the concatenated batch. Every rank runs the same number of steps
+(the fewest batches any rank has). ``trainer.fsdp`` (with a mesh) creates
+the state sharded (``parallel/fsdp.py``) and resumes straight into the
+shards. Rank 0 logs and writes the replicated checkpoints.
 """
 
 from __future__ import annotations
@@ -32,7 +42,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.fsdp import shard_train_state
+from ..parallel.mesh import (agree_min, all_reduce_mean_, data_parallel,
+                             dp_rank, dp_sharding, local, reduce_gradients,
+                             replicate)
 from ..utils.config import Config
 from ..utils.device import DeviceLike, resolve_device
 from .checkpoint import (CheckpointManager, find_latest_ckpt, new_run_id,
@@ -128,19 +143,24 @@ def _ema_of(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {k: p.detach().clone() for k, p in params.named_parameters()}
 
 
+class _NoLogger:
+    """The logger of a rank other than 0: every call does nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 class Trainer:
     def __init__(self, cfg: Config, task: Task, mesh: Any = None,
                  run_id: Optional[str] = None, resume: bool = False, *,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): data parallelism waits for the port's "
-                "distributed slice")
-        if bool(cfg.trainer.get("fsdp", False)):
-            raise NotImplementedError(
-                "trainer.fsdp waits for the port's distributed slice")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # trainer.fsdp shards the state over 'dp'; without a mesh it is
+        # ignored, as in JAX
+        self.fsdp = mesh is not None and bool(cfg.trainer.get("fsdp", False))
+        self.rank0 = mesh is None or dist.get_rank() == 0
         # trainer.ema_decay=d keeps an exponential moving average of the
         # params in TrainState.extra (ema = d*ema + (1-d)*params), updated in
         # the train step, checkpointed and resumed with everything else. It
@@ -191,7 +211,8 @@ class Trainer:
                 alternates.append((template.replace(
                     extra={"ema_params": _ema_of(template.params)}), _drop_ema))
             restored, found_id, step = find_latest_ckpt(
-                exp_path, exp_name, template, alternates=tuple(alternates))
+                exp_path, exp_name, template, alternates=tuple(alternates),
+                mesh=mesh)
             if restored is not None:
                 print(f"[trainer] resuming run {found_id} at step {step}")
                 self._resume_state = restored
@@ -199,15 +220,23 @@ class Trainer:
             else:
                 print("[trainer] no checkpoint found, starting from scratch")
         self.run_id = run_id or new_run_id()
+        if mesh is not None:   # one run directory: rank 0's
+            ids = [self.run_id]
+            dist.broadcast_object_list(ids, src=0)
+            self.run_id = ids[0]
         self.run_dir = run_dir_for(exp_path, exp_name, self.run_id)
-        self.logger = RunLogger(self.run_dir, project=cfg.get("project_name"),
-                                name=exp_name, resume_id=self.run_id)
+        self.logger = (RunLogger(self.run_dir, project=cfg.get("project_name"),
+                                 name=exp_name, resume_id=self.run_id)
+                       if self.rank0 else _NoLogger())
         # async by default: save() blocks only for the device->host copy;
-        # the disk write overlaps the next training steps
+        # the disk write overlaps the next training steps (under a mesh
+        # saves end at a barrier)
         self.ckpt = CheckpointManager(
             self.run_dir,
-            async_save=bool(cfg.trainer.get("async_checkpoint", True)))
-        Config(cfg).save(f"{self.run_dir}/config.yaml")
+            async_save=bool(cfg.trainer.get("async_checkpoint", True)),
+            mesh=mesh)
+        if self.rank0:
+            Config(cfg).save(f"{self.run_dir}/config.yaml")
 
     @staticmethod
     def ema_params(state: TrainState) -> Dict[str, torch.Tensor]:
@@ -219,25 +248,52 @@ class Trainer:
 
     # -- state ----------------------------------------------------------------
     def _init_state(self, seed: int) -> TrainState:
+        """The fresh state; under ``trainer.fsdp`` built on the host and
+        sharded leaf by leaf onto the device (``shard_train_state``)."""
         p_seed, e_seed, s_seed = (int(s) for s in
                                   np.random.SeedSequence(seed).generate_state(3))
-        params = self.task.init_params(p_seed, self.device)
+        build = torch.device("cpu") if self.fsdp else self.device
+        params = self.task.init_params(p_seed, build)
         extra = (self.task.init_extra(e_seed, params)
                  if self.task.init_extra is not None else None)
         rng = torch.Generator(device=self.device).manual_seed(s_seed)
-        return TrainState(step=0, params=params,
-                          opt_state=self.tx.init(list(params.parameters())),
-                          rng=rng, extra=extra)
+        state = TrainState(step=0, params=params,
+                           opt_state=self.tx.init(list(params.parameters())),
+                           rng=rng, extra=extra)
+        if self.fsdp:
+            state = shard_train_state(state, self.mesh, device=self.device)
+        return state
 
     def init_state(self) -> TrainState:
-        if self._resume_state is not None:
-            return self._resume_state
-        return self._init_state(int(self.cfg.get("seed", 0)))
+        state = (self._resume_state if self._resume_state is not None
+                 else self._init_state(int(self.cfg.get("seed", 0))))
+        if self.mesh is not None and not self.fsdp:
+            # every rank starts from rank 0's parameters (fresh or resumed)
+            for module in [state.params] + [
+                    v for v in (state.extra or {}).values()
+                    if isinstance(v, torch.nn.Module)]:
+                replicate(module, self.mesh)
+        return state
+
+    def batch_sharding(self):
+        """The placements of a batch over the mesh (dim 0 over 'dp'), None
+        without one; each rank's loader yields its own rows."""
+        return None if self.mesh is None else dp_sharding(self.mesh)
 
     # -- steps ------------------------------------------------------------------
     def _train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        if self.task.custom_train_step is not None:
-            return self.task.custom_train_step(state, batch, self.tx)
+        with data_parallel(self.mesh):
+            if self.task.custom_train_step is not None:
+                state, aux = self.task.custom_train_step(state, batch, self.tx)
+            else:
+                state, aux = self._default_step(state, batch)
+            # the global batch's scalars (the replicated ones stay as they are)
+            all_reduce_mean_([v for v in aux.values()
+                              if isinstance(v, torch.Tensor)])
+        return state, aux
+
+    def _default_step(self, state: TrainState, batch
+                      ) -> Tuple[TrainState, Dict]:
         params = list(state.params.parameters())
         for p in params:
             p.grad = None
@@ -249,14 +305,15 @@ class Trainer:
         aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in aux.items()}
         aux["loss"] = loss.detach()
-        aux["grad_norm"] = global_norm(grads)   # of the unclipped grads
+        reduce_gradients(grads, params)
+        aux["grad_norm"] = global_norm(grads, params)  # the unclipped grads
         applied = self.tx.update(params, grads, state.opt_state)
         if self.ema_decay is not None and applied:
             d = float(self.ema_decay)
-            ema = list(state.extra["ema_params"].values())
+            ema = [local(t) for t in state.extra["ema_params"].values()]
             with torch.no_grad():
                 torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, [p.detach() for p in params],
+                torch._foreach_add_(ema, [local(p).detach() for p in params],
                                     alpha=1.0 - d)
         state.step += 1
         return state, aux
@@ -328,6 +385,12 @@ class Trainer:
                         n_batches = (int(n_batches * float(limit)) if limit <= 1
                                      else int(limit))
                     batches = device_prefetch(train_loader, device=self.device)
+                agreed = agree_min(n_batches, self.mesh)
+                if agreed < n_batches:
+                    print(f"[trainer] rank {dp_rank(self.mesh)}: dropping "
+                          f"{n_batches - agreed} batches of epoch {epoch}: "
+                          f"every rank runs {agreed}")
+                    n_batches = agreed
                 for i, batch in enumerate(batches):
                     if i >= n_batches:
                         break
@@ -408,6 +471,9 @@ class Trainer:
         if limit is not None:
             # fractions (<1.0) scale the loader length; ints are batch counts
             limit = int(limit) if limit >= 1 else max(1, int(limit * len(val_loader)))
+        if self.mesh is not None:   # every rank the same number of batches
+            limit = agree_min(min(limit or len(val_loader), len(val_loader)),
+                              self.mesh)
         for i, batch in enumerate(device_prefetch(val_loader,
                                                   device=self.device)):
             if limit is not None and i >= limit:
@@ -429,6 +495,11 @@ class Trainer:
         out = {"loss": float(np.mean(losses)) if losses else float("nan")}
         if n_metric:
             out.update({k: v / n_metric for k, v in metric_sums.items()})
+        if self.mesh is not None:   # the mean over the ranks
+            vals = torch.tensor(list(out.values()), dtype=torch.float64,
+                                device=self.device)
+            all_reduce_mean_([vals], self.mesh)
+            out = dict(zip(out, vals.tolist()))
         self.logger.log_scalars(out, step, prefix=tag)
         return out
 
