@@ -86,7 +86,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      training at bench.py::bench_train's shapes: PosAwareAE(latent_dim=
      2048) + NLayerDiscriminator(1, 64, 3) through make_vae_gan_task, fp32
      (TF32 off) at B x T = 4 x 4 and bf16 mixed precision at 4, 8 and 16 x
-     4: median ms/step over 10 steps after 2 warm-up steps, steps/s,
+     4: median ms/step over 5 steps after 2 warm-up steps, steps/s,
      frames/s, peak memory, the device's busy share (torch.profiler),
      losses finite on every step; the first fp32 step's rec_loss, g_loss
      and disc_loss (rel 1e-4), d_weight and grad_norm (rel 1e-2) against
@@ -128,8 +128,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      vit_ae, structured_conv_ae, conv_autoencoder and attention_charged_ae
      at the registry's default widths (2 x 2 frames, 2 steps each);
  18. in a fresh process (chip_smoke.py --data, run after --zoo), the SEVIR
-     data layer: a sevirlr tree (CATALOG.csv of 512 VIL events at 128^2 x
-     25, a week apart, 480 up to the 2019-06-01 split date and 32 after;
+     data layer: a sevirlr tree (CATALOG.csv of 272 VIL events at 128^2 x
+     25, a week apart, 240 up to the 2019-06-01 split date and 32 after;
      an empty data/vil/; the train and test packed caches), written by
      data/synthetic.py::make_synthetic_sevir_cache (no HDF5), and a sevir
      tree (32 events at 384^2 x 49); SEVIRDataModule(use_cache=True)
@@ -176,14 +176,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      0); latent_convattn's first loss card vs CPU (rel 1e-4);
  25. evaluate.py --ensemble 2 on phase 20's latent_dlinear run directory
      (the model/persistence table, the calibration and CRPS); sweep.py
-     over two mlp_intensity runs, the first failing once after training,
-     retried with --resume true into the same run directory;
- 26. quality_runs.py per model at --steps 100 --steps-ae 100 (win counts;
+     over one mlp_intensity run failing once after training, retried with
+     --resume true into the same run directory;
+ 26. quality_runs.py per model at --steps 25 --steps-ae 25 (win counts;
      one stencil launch a training step in Earthformer's, none in
      token_vit's or AlphaPre's, whose recipe has no prior); 26b.
-     demo_path_b.py at 100 + 100 steps (its defaults otherwise: 64^2; the
-     panel PNG) and with --forecaster earthformer at its defaults (300
-     steps, one stencil launch a step);
+     demo_path_b.py at 50 + 50 steps (its defaults otherwise: 64^2; the
+     panel PNG) and with --forecaster earthformer at 50 + 50 steps (one
+     stencil launch a forecaster step);
  27. in a fresh process (chip_smoke.py --dist, run after --cli), the
      distributed layer at world size 1 over NCCL: make_dp_serving_fn of
      the reference pipeline, bf16, B=64 (host uint8 frames in, numpy out):
@@ -201,7 +201,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      after 3 steps within rel-L2 1e-5 of the non-mesh step's,
      shard_fraction, peak memory, ms a step; a sharded checkpoint
      (torch.distributed.checkpoint) at step 2 resumed into shards, its
-     step 3 within 1e-6 of the straight run;
+     step 3 within 1e-6 of the straight run; the same step with remat
+     (the fast VAE's blocks recomputed in the backward) under trainer.fsdp
+     against remat without a mesh, 3 steps: aux rel 1e-5, parameters
+     rel-L2 1e-5, the same GN launches;
  31. two ranks sharing the card over gloo (chip_smoke.py --dist-rank, two
      processes; NCCL refuses two ranks a GPU), Trainer(mesh=...) DP steps
      of the same task on 8 x 4 rows each against one rank on the 16 x 4
@@ -217,6 +220,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      are rounded to bf16 before the sum); ms a step;
  32. graft_entry_torch.entry()'s program (bench.py's fp32 Path-B, B=64)
      once, 42 GN launches, and dryrun_multichip(1) on the card;
+ 33. in a fresh process (chip_smoke.py --perf, run after --dist), every
+     experiments_gpu/perf/ script's main at full width (its default
+     shapes and widths), depth cut (PERF_RUNS): full_res_384 (2 steps),
+     full_res_serving (reference B=4, fast B=4 and 16), remat_train (16 x
+     4, 3 steps each way), ckpt_stall (one sync and one async save),
+     batch_sweep and fast_vae_probe (B=64), fast_vae_sweep (B=64, bf16
+     and int8_static), int8_fast_vae, int8_mixed (the fast VAE at B=64,
+     two families), int8_qat (10 + 5 steps on 16 events),
+     b1_latency_profile (5 reps and a profiler trace), space_to_depth (5
+     reps); no script's error is
+     caught; each script's GroupNorm launches (one-pass and two-pass),
+     int8 conv and quantize launches, with two-pass launches in
+     full_res_384 and full_res_serving; then the GroupNorm kernel against
+     its plain version at every call shape of the fast VAE's 384^2 bf16
+     call (B=16) and every int8 conv of the fast VAE's int8_static call
+     (two sequences) against the plain version's bits on its own input;
  and, after phase 9, the int8 modes' gradients on the card against the
  CPU's (rel 1e-5).
 The kernels build in parallel (one nvcc per source). fp32 runs with TF32
@@ -305,7 +324,7 @@ LATENT_BATCH = 8
 # NLayerDiscriminator(1, 64, 3) on B x T frames of 128^2; (bf16, B) runs
 GAN_AE = dict(latent_dim=2048)
 GAN_PARAMS = (80_750_017, 2_755_905)     # the JAX modules' counts
-GAN_T, GAN_STEPS = 4, 10
+GAN_T, GAN_STEPS = 4, 5
 ALPHAPRE_CONFIG = os.path.join(REPO, "experiments", "alphapre", "config.yaml")
 TOKEN_VIT_CONFIG = os.path.join(REPO, "experiments", "token_vit",
                                 "config.yaml")
@@ -1630,39 +1649,15 @@ def int8_grad_check():
 
 
 def gan_bench_task(mixed, ae=GAN_AE, ndf=64, n_layers=3):
-    """bench.py::bench_train's task on the port: PosAwareAE + PatchGAN,
-    disc Adam(4.5e-5, 0.5, 0.9), disc_weight 0.5, disc_start 0, and the
-    generator's clip 1.0 + AdamW(1e-4, weight decay 1e-4: optax's
-    default)."""
-    from weatherforecastingtoolkit_tpu_torch.models.conv_ae import PosAwareAE
-    from weatherforecastingtoolkit_tpu_torch.models.losses.gan import (
-        NLayerDiscriminator)
-    from weatherforecastingtoolkit_tpu_torch.training.gan import (
-        make_vae_gan_task)
-    from weatherforecastingtoolkit_tpu_torch.training.optim import adam, adamw
+    """bench.py::bench_train's task on the port (experiments_gpu/perf/
+    remat_train.py::gan_task: PosAwareAE + PatchGAN, disc Adam(4.5e-5, 0.5,
+    0.9), disc_weight 0.5, disc_start 0) and the generator's clip 1.0 +
+    AdamW(1e-4, weight decay 1e-4: optax's default)."""
+    from experiments_gpu.perf.remat_train import gan_task
+    from weatherforecastingtoolkit_tpu_torch.training.optim import adamw
 
-    task = make_vae_gan_task(
-        name="bench_gan", generator_apply=lambda g, f, r: (g(f)[0], None),
-        gen_init=lambda s, d: PosAwareAE(**ae, device=d, seed=s),
-        disc_apply=lambda d, f: d(f),
-        disc_init=lambda s, d: NLayerDiscriminator(1, ndf, n_layers,
-                                                   device=d, seed=s),
-        disc_tx=adam(4.5e-5, b1=0.5, b2=0.9), last_layer_path="dec_out.weight",
-        disc_weight=0.5, disc_start=0, mixed_precision=mixed)
-    return task, adamw(1e-4, weight_decay=1e-4, grad_clip=1.0)
-
-
-def gan_state(task, tx, device, seed=0):
-    import torch
-
-    from weatherforecastingtoolkit_tpu_torch.training.trainer import (
-        TrainState)
-
-    params = task.init_params(seed, device)
-    return TrainState(step=0, params=params,
-                      opt_state=tx.init(list(params.parameters())),
-                      rng=torch.Generator(device=device).manual_seed(seed),
-                      extra=task.init_extra(seed, params))
+    return (gan_task(False, ae, (1, ndf, n_layers), mixed),
+            adamw(1e-4, weight_decay=1e-4, grad_clip=1.0))
 
 
 def check_gan_aux(aux, where):
@@ -1691,6 +1686,7 @@ def gan_bench_phase(tmp):
     and bf16 mixed precision at 4x4, 8x4 and 16x4)."""
     import torch
 
+    from experiments_gpu.perf.remat_train import gan_state
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
     from weatherforecastingtoolkit_tpu_torch.training.optim import (
         count_params)
@@ -2467,13 +2463,13 @@ def profile_phase():
 
 
 # ----------------------------------------------------- 18.-20. the data slice
-# sevirlr tree: 480 train events up to the 2019-06-01 split date and 32
+# sevirlr tree: 240 train events up to the 2019-06-01 split date and 32
 # after, a week apart; sevir tree: 28 + 4 events at 384^2 x 49
-DATA_TREES = {"sevirlr": (480, 32), "sevir": (28, 4)}
+DATA_TREES = {"sevirlr": (240, 32), "sevir": (28, 4)}
 DATA_SEEDS = {"sevirlr": 21, "sevir": 22}
 DATA_SPLIT = (2019, 6, 1)
 LOADER_BATCH = 4
-LOADER_BATCHES = {"sevirlr": 40, "sevir": 15}
+LOADER_BATCHES = {"sevirlr": 20, "sevir": 8}
 EF_SCRIPT = os.path.join(REPO, "experiments_gpu", "earthformer", "train.py")
 LATENT_SCRIPT = os.path.join(REPO, "experiments_gpu", "latent_dlinear",
                              "train.py")
@@ -3009,7 +3005,7 @@ CLI_CPU_RTOL = 1e-4
 GAN_FROM_START = "lpips.disc_start=0"
 # quality_runs.py's steps (its defaults: 1500 and 4000), cut to fit the
 # process's time
-QUALITY_ARGS = ["--steps", "100", "--steps-ae", "100"]
+QUALITY_ARGS = ["--steps", "25", "--steps-ae", "25"]
 # the frames of vae_gan_kl's first batch that its card-vs-CPU step takes
 # (the CPU's step at full width costs about 1.6 s a frame)
 VAE_GAN_CPU_FRAMES = 4
@@ -3335,8 +3331,8 @@ if not os.path.exists({marker!r}):
 
 def evaluate_sweep_phase(trees, tmp):
     """Phase 25: evaluate.py with --ensemble 2 on a latent_dlinear run
-    directory; sweep.py over two mlp_intensity runs, the first made to fail
-    once after it trained, which resumes."""
+    directory; sweep.py over one mlp_intensity run made to fail once after
+    it trained, which resumes."""
     import glob
     import importlib.util
 
@@ -3384,19 +3380,19 @@ def evaluate_sweep_phase(trees, tmp):
         f.write(FAIL_ONCE.format(script=os.path.join(
             EXP_GPU, "mlp_intensity", "train.py"), marker=marker))
     common = " ".join(cli_argv(trees["sevirlr"], "-", 4)[:-1])
-    paths = [os.path.join(tmp, f"sweep_{i}") for i in range(2)]
+    paths = [os.path.join(tmp, "sweep_0")]
     argv = [wrapper, "--runs", *(f"{common} experiment_path={p}"
                                  for p in paths)]
-    log(f"  python experiments_gpu/sweep.py {' '.join(argv)} (the first run "
-        "exits 3 once, after training and its checkpoint)")
+    log(f"  python experiments_gpu/sweep.py {' '.join(argv)} (the run exits "
+        "3 once, after training and its checkpoint)")
     start = time.perf_counter()
     failed = sw.main(argv)
     runs = [glob.glob(os.path.join(p, "outputs", "mlp_intensity", "runs",
                                    "run-*")) for p in paths]
     log(f"  sweep.py in {time.perf_counter() - start:.2f} s: failed runs "
         f"{failed}, run directories {[len(r) for r in runs]} (the retry "
-        "resumed the first run's directory)")
-    if failed or [len(r) for r in runs] != [1, 1] or not os.path.exists(marker):
+        "resumed the run's directory)")
+    if failed or [len(r) for r in runs] != [1] or not os.path.exists(marker):
         raise AssertionError(f"sweep: failed {failed}, runs {runs}")
 
 
@@ -3443,15 +3439,14 @@ def demo_phase(tmp):
     demo = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(demo)
     panel = os.path.join(tmp, "demo_panel.png")
-    # the default run at 100 + 100 steps (its default 300 + 300, cut for
-    # the script's time; the panel is the check), the Earthformer branch at
-    # its defaults
-    for argv, want in ((["--save-panel", panel, "--steps-ae", "100",
-                         "--steps-fc", "100"], None),
-                       (["--forecaster", "earthformer"], 300)):
+    # both at 50 + 50 steps (the default 300 + 300, cut for the script's
+    # time; the checks are the panel and one stencil launch a forecaster
+    # step)
+    cut = ["--steps-ae", "50", "--steps-fc", "50"]
+    for argv, want in ((["--save-panel", panel] + cut, None),
+                       (["--forecaster", "earthformer"] + cut, 50)):
         log(f"phase 26b: python experiments_gpu/demo_path_b.py "
-            f"{' '.join(argv)} (otherwise its defaults: 64 events at 64^2, "
-            "300 + 300 steps)")
+            f"{' '.join(argv)} (otherwise its defaults: 64 events at 64^2)")
         stencil.launches = groupnorm.launches = 0
         start = time.perf_counter()
         wins = demo.main(argv)
@@ -3517,7 +3512,7 @@ def cli_phase():
 
 
 # ----------------------------------------------------------- --dist (27-32)
-DIST_STEPS, DIST_TIMED = 3, 5   # checked steps, then timed steps
+DIST_STEPS, DIST_TIMED = 3, 3   # checked steps, then timed steps
 TWO_RANK_STEPS = 2              # two ranks on one card, 8 x 4 rows each
 GAN_AUX = ("loss", "rec_loss", "g_loss", "disc_loss", "d_weight",
            "grad_norm")
@@ -3749,6 +3744,32 @@ def dist_train_phase(mesh, tmp):
         f"(without a mesh {plain_peak:.2f}); resumed at step 2 from the "
         f"sharded checkpoint, step 3 within {gap:.3g} of the straight run")
     del res, rst
+    torch.cuda.empty_cache()
+
+    # remat under trainer.fsdp with bf16: the recompute runs on the bf16
+    # copies of the gathered parameters the forward saw
+    remat_task = dict(FAST_SHAPE, remat=True)
+    runs = []
+    for name, m, fsdp in (("dist_remat", None, False),
+                          ("dist_remat_fsdp", mesh, True)):
+        tr = Trainer(dist_config(tmp, name, fsdp), build_task(remat_task),
+                     mesh=m)
+        st, auxes, launches = steps(tr, tr.init_state(), DIST_STEPS)
+        runs.append((auxes, launches, full_params(st)))
+        tr.close()
+        del tr, st
+        torch.cuda.empty_cache()
+    (plain_aux, plain_l, want), (fs_aux, fs_l, got) = runs
+    worst = max(abs(a[k] - w[k]) / abs(w[k]) for a, w in zip(fs_aux, plain_aux)
+                for k in GAN_AUX if w[k])
+    err = rel_l2(got, want)
+    log(f"  remat under trainer.fsdp, bf16, {DIST_STEPS} steps: aux within "
+        f"rel {worst:.3g} of the remat step without a mesh, parameters rel-L2 "
+        f"{err:.3g}; GN launches a step {fs_l} (without a mesh {plain_l})")
+    if not (worst <= 1e-5 and err <= 1e-5 and fs_l == plain_l):
+        raise AssertionError(f"remat under FSDP: aux rel {worst}, rel-L2 "
+                             f"{err}, launches {fs_l} vs {plain_l}")
+    del runs, want, got
     torch.cuda.empty_cache()
 
 
@@ -4218,6 +4239,143 @@ def dist_phase():
     return 0
 
 
+PERF_DIR = os.path.join(REPO, "experiments_gpu", "perf")
+# each perf script at full width (its default shapes and widths), depth cut
+PERF_RUNS = (
+    ("full_res_384", ["--steps", "2"]),
+    ("full_res_serving", ["--batches", "4", "--fast-batches", "4,16"]),
+    ("remat_train", ["--batches", "16", "--steps", "3"]),
+    ("ckpt_stall", []),
+    ("batch_sweep", ["--batches", "64"]),
+    ("fast_vae_probe", []),
+    ("fast_vae_sweep", ["64"]),
+    ("int8_fast_vae", []),
+    ("int8_mixed", ["--fast", "--batch", "64", "--families", "2"]),
+    ("int8_qat", ["--steps", "10", "--qat-steps", "5", "--events", "16"]),
+    ("b1_latency_profile", ["--reps", "5", "--trace"]),
+    ("space_to_depth", ["--reps", "5"]),
+)
+PERF_TWO_PASS = ("full_res_384", "full_res_serving")
+PERF_INT8 = ("fast_vae_sweep", "int8_fast_vae", "int8_mixed", "int8_qat")
+PERF_NO_GN = ("remat_train", "ckpt_stall", "space_to_depth")
+
+
+def perf_kernel_checks():
+    """At this slice's new shapes: the GroupNorm kernel against its plain
+    version at every GroupNorm call shape of the fast VAE's 384^2 bf16 call
+    (full_res_serving's FAST_SHAPE, B=16; the bf16 1 ulp + 1e-4 rule), and
+    every int8 conv of the fast VAE's int8_static call (bench.py's
+    FAST_VAE_KW at 128^2, two sequences, as phase 10) against the plain
+    version's bits on the card's own input."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from experiments_gpu.perf import bench_helpers as bh
+    from experiments_gpu.perf import full_res_serving as frs
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+
+    frames = bh.frames_for(16, frs.HW, "cuda")
+    pipe, fc = bh.build_pipeline("bfloat16", vae_kwargs=frs.FAST_SHAPE,
+                                 hw=frs.HW, device="cuda")
+    calls = record_gn_calls(pipe.vae, lambda: pipe(fc, frames))
+    del pipe, frames
+    torch.cuda.empty_cache()
+    tot, err = time_gn_calls(calls, "  the fast VAE's GroupNorms at 384^2, "
+                                    "bf16, B=16")
+    frames = bh.frames_for(2, bh.HW, "cuda")
+    qs = bh.calibrate_qscales(frames, bh.FAST_VAE_KW)
+    pipe, fc = bh.build_pipeline("bfloat16", "int8_static",
+                                 vae_kwargs=bh.FAST_VAE_KW, qscales=qs,
+                                 device="cuda")
+    cpu_vae = AutoencoderKL(**bh.vae_config(bh.FAST_VAE_KW),
+                            conv_mode="int8_static", seed=0, device="cpu")
+    cpu_vae.load_qscales({k: v.cpu() for k, v in qs.items()})
+    cpu_vae = cpu_vae.to(torch.bfloat16)
+    n_convs, out = int8_convs_match_cpu(pipe.vae, cpu_vae,
+                                        lambda: pipe(fc, frames))
+    check_frames(out, (2, T_OUT, 1, HW, HW))
+    log(f"  the fast VAE's int8_static call, two sequences: each of its "
+        f"{n_convs} int8 convs gave the plain version's bits on the card's "
+        f"own input")
+    if n_convs == 0:
+        raise AssertionError("no int8 conv in the fast VAE's int8_static call")
+    return tot, err
+
+
+def perf_phase():
+    """Phase 33 in a fresh process (``chip_smoke.py --perf``, run after
+    --dist): every experiments_gpu/perf/ script's main at full width, depth
+    cut (PERF_RUNS), with each kernel's launches per script; then the
+    kernels against their plain versions at the slice's new shapes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    import importlib
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    sys.path.insert(0, REPO)
+    t_all = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
+        for fut in [pool.submit(k.build) for k in (groupnorm, ic)]:
+            fut.result()
+    log(f"phase 33: experiments_gpu/perf/ at full width, depth cut; kernel "
+        f"builds {time.perf_counter() - t_all:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_perf_")
+    counts = {}
+    try:
+        for name, argv in PERF_RUNS:
+            if name == "full_res_384":
+                argv = argv + ["--out", os.path.join(tmp, "fr384")]
+            if name == "b1_latency_profile":
+                argv = argv + [os.path.join(tmp, "b1_trace")]
+            mod = importlib.import_module(f"experiments_gpu.perf.{name}")
+            before = (groupnorm.launches, groupnorm.two_pass_launches,
+                      ic.conv_launches, ic.quantize_launches)
+            log(f"--- {name} {' '.join(argv)}")
+            t0 = time.perf_counter()
+            mod.main(argv)
+            torch.cuda.synchronize()
+            gn, two, conv, quant = (a - b for a, b in zip(
+                (groupnorm.launches, groupnorm.two_pass_launches,
+                 ic.conv_launches, ic.quantize_launches), before))
+            counts[name] = (gn, two, conv, quant)
+            log(f"    {name}: {time.perf_counter() - t0:.1f} s; launches: "
+                f"GroupNorm {gn - two} one-pass + {two} two-pass, int8 conv "
+                f"{conv}, quantize {quant}")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, (gn, two, conv, quant) in counts.items():
+        if name in PERF_TWO_PASS and not two > 0:
+            raise AssertionError(f"{name}: no two-pass GroupNorm launch")
+        if (gn > 0) == (name in PERF_NO_GN):
+            raise AssertionError(f"{name}: {gn} GroupNorm launches")
+        if (conv > 0 and quant > 0) != (name in PERF_INT8):
+            raise AssertionError(f"{name}: {conv} int8 conv and {quant} "
+                                 f"quantize launches")
+    perf_kernel_checks()
+    log(f"phase 33: {time.perf_counter() - t_all:.1f} s")
+    return 0
+
+
+def run_process(*args):
+    """``chip_smoke.py *args`` in a fresh process (its failure fails this
+    one); logs its wall time."""
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                   check=True)
+    log(f"chip_smoke.py {args[0]}: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -4241,6 +4399,7 @@ def main():
     if not os.path.abspath(port.__file__).startswith(REPO + os.sep):
         raise RuntimeError(f"imported the port from {port.__file__}, "
                            f"not from {REPO}")
+    t_main = time.perf_counter()
 
     # ---------------------------------------------------------- 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4471,8 +4630,7 @@ def main():
 
     # torch.profiler in a fresh process: in this one, after the phases
     # above, its sessions came back empty on the card
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--profile"],
-                   check=True)
+    run_process("--profile")
 
     # ------------------------------------------ 6.-8. the training slice
     stencil_err = stencil_phase()
@@ -4486,23 +4644,23 @@ def main():
     torch.cuda.empty_cache()
 
     # ------------------------------- 12.-13. GAN training, a fresh process
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--train"],
-                   check=True)
+    run_process("--train")
     # ---------------------------------- 14.-17. the model zoo, a fresh process
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--zoo"],
-                   check=True)
+    run_process("--zoo")
     # ------------------ 18.-20. data and the command line, a fresh process,
     # then 21.-26b., the remaining commands, in another on the same trees
     shared = tempfile.mkdtemp(prefix="chip_smoke_trees_")
     try:
         for flag in ("--data", "--cli"):
-            subprocess.run([sys.executable, os.path.abspath(__file__), flag,
-                            shared], check=True)
+            run_process(flag, shared)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
     # ------------------------ 27.-32. the distributed layer, a fresh process
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--dist"],
-                   check=True)
+    run_process("--dist")
+    # ------------------------------ 33. the perf scripts, a fresh process
+    torch.cuda.empty_cache()
+    log_free("phase 33")
+    run_process("--perf")
 
     # ------------------------------ 9.-11. quantized serving, verification
     ref_calls, fast_calls, int8_launches, _ = int8_serving_phase(
@@ -4514,6 +4672,7 @@ def main():
     time_int8_calls(fast_calls, f"fast VAE INT8_MIXED_SPEC bf16 B={FAST_BATCH}")
     i8 = time_int8_calls(ref_calls, f"int8_static reference bf16 B={BATCH}")
     ensemble_eval_phase(frames, dlinear)
+    log(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s")
 
     log(smi)
     log(json.dumps({"kernels": [{
@@ -4550,5 +4709,5 @@ if __name__ == "__main__":
     sys.exit({"--profile": profile_phase, "--train": train_phase,
               "--zoo": zoo_phase, "--data": data_phase,
               "--cli": cli_phase, "--dist": dist_phase,
-              "--dist-rank": dist_rank_phase}.get(
+              "--dist-rank": dist_rank_phase, "--perf": perf_phase}.get(
         sys.argv[1] if sys.argv[1:] else "", main)())

@@ -4,17 +4,19 @@ experiments/token_vit/train.py).
 
 ``build_task(cfg, dm=None, vit=None)`` builds the Task from the experiment's
 config (``experiments/token_vit/config.yaml``): frames become token
-sequences through the frozen ``ViTAE`` (``make_vit``: random weights from
-``vit_ae.init_seed``, the hermetic mode, on the card unless another device
-is given), a ``TokenSequenceForecaster`` learns to forecast them (latent
-MSE, dropout on in training), and evaluation decodes the forecast tokens
-to frames clipped to [0, 1]. The frozen ViTAE runs under ``torch.no_grad``
-and gets no gradient.
+sequences through the frozen ``ViTAE`` (``make_vit``), a
+``TokenSequenceForecaster`` learns to forecast them (latent MSE, dropout on
+in training), and evaluation decodes the forecast tokens to frames clipped
+to [0, 1]. The frozen ViTAE runs under ``torch.no_grad`` and gets no
+gradient.
 
-Not here yet: loading the ViTAE from a run directory
-(``vit_ae.ckpt_run_dir``; the JAX experiment restores a JAX checkpoint)
-raises. The command line (``experiments_gpu/common.py::main``) trains it
-from a SEVIR tree, on ``cuda`` unless ``--device cpu`` is given.
+The ViTAE's weights come from ``vit_ae.ckpt_run_dir``, a run directory of
+``experiments_gpu/ae_recon/train.py`` with ``model.name: vit_ae`` (its
+newest checkpoint's params, through the port's checkpoint module), or,
+when it is null, from ``vit_ae.init_seed`` (random, the hermetic mode). A
+missing run, a run without checkpoints or one whose shapes differ from
+the config's raises. The command line (``experiments_gpu/common.py::main``)
+trains it from a SEVIR tree, on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -30,22 +32,26 @@ import torch  # noqa: E402
 from weatherforecastingtoolkit_tpu_torch.models.token_forecaster import (  # noqa: E402
     TokenSequenceForecaster)
 from weatherforecastingtoolkit_tpu_torch.models.vit_ae import ViTAE  # noqa: E402
+from weatherforecastingtoolkit_tpu_torch.training.checkpoint import (  # noqa: E402
+    restore_params)
 from weatherforecastingtoolkit_tpu_torch.training.tasks import Task, dequantize  # noqa: E402
 from weatherforecastingtoolkit_tpu_torch.utils.device import DeviceLike  # noqa: E402
 
 
 def make_vit(cfg, device: DeviceLike = None) -> ViTAE:
-    """The frozen ViTAE of the config: random weights from
-    ``vit_ae.init_seed``, no dropout, no gradients."""
+    """The frozen ViTAE of the config, no dropout, no gradients: the params
+    of the newest checkpoint of ``vit_ae.ckpt_run_dir`` (an ae_recon run),
+    else random weights from ``vit_ae.init_seed``."""
     v = cfg.vit_ae
-    if v.get("ckpt_run_dir"):
-        raise NotImplementedError(
-            "loading the frozen ViTAE from vit_ae.ckpt_run_dir is not ported "
-            "yet; leave it null for the random frozen ViTAE")
     vit = ViTAE(img_size=v.img_size, patch=v.patch, d_token=v.d_token,
                 d_latent=v.d_latent, depth_enc=v.depth_enc,
                 depth_dec=v.depth_dec, heads=v.heads, dropout=0.0,
                 device=device, seed=v.get("init_seed", 7))
+    if v.get("ckpt_run_dir"):
+        restore_params(str(v.ckpt_run_dir), vit)
+        print(f"[token_vit] loaded frozen ViT AE from {v.ckpt_run_dir}")
+    else:
+        print("[token_vit] random frozen ViT AE (hermetic mode)")
     return vit.requires_grad_(False).eval()
 
 

@@ -199,3 +199,25 @@ def test_qconv_promotes_and_rejects_unported_modes():
         assert torch.equal(out(x), conv(x.to(torch.bfloat16))), mode
     with pytest.raises(ValueError, match="not in"):
         PQConv(2, 3, 1, mode="int4")
+
+
+# ----------------------------------------------------------------- init
+@pytest.mark.parametrize("shape,fan_in,scale", [
+    ((64, 32, 3, 3), None, 1.0), ((40, 7), 7, 2.0), ((3,), None, 1.0),
+    ((256, 128, 4, 4), 512, 1.0)])
+def test_lecun_normal_draws_the_redraw_loops_values(shape, fan_in, scale):
+    """lecun_normal_ redraws only the values still out of range, in index
+    order: the bits of the whole-array redraw loop it replaced, which is
+    the reference here (every port model's numpy-drawn weights)."""
+    rng = np.random.default_rng(11)
+    v = rng.standard_normal(shape)
+    out = np.abs(v) > 2.0
+    while out.any():
+        v[out] = rng.standard_normal(int(out.sum()))
+        out = np.abs(v) > 2.0
+    std = (scale / (fan_in or int(np.prod(shape[1:])))) ** 0.5 \
+        / pcommon._TRUNC_STD
+    want = torch.from_numpy(v * std).float()
+    got = pcommon.lecun_normal_(torch.empty(shape), np.random.default_rng(11),
+                                fan_in=fan_in, scale=scale)
+    assert torch.equal(got, want)

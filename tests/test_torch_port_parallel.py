@@ -9,7 +9,8 @@ them (a join timeout and a free port) and each test reads its part:
     JAX weights against jax.grad of the JAX task on the concatenated batch;
   * two DP and two FSDP steps of make_vae_gan_task against the port's
     one-rank steps on the concatenated batch (aux rel 1e-4, update rel-L2
-    1e-3), the FSDP state sharded;
+    1e-3), the FSDP state sharded; with remat and bf16, FSDP against DP;
+  * a sharded resume across an ema_decay toggle, both ways;
   * Trainer(mesh=...).fit on an auto-sharded SEVIR tree, DP and FSDP
     (shard_fraction < 0.6 at latent_dim 512, as JAX test_trainer_fsdp_flag),
     and the FSDP resume restored into shards with equal values;
@@ -195,6 +196,37 @@ def test_fsdp_gan_steps_match_one_rank(group):
     assert a["fraction"] < 0.6, a["fraction"]
     for n in a["p1"]:
         np.testing.assert_array_equal(a["p1"][n], b["p1"][n])
+
+
+def test_fsdp_remat_bf16_gan_steps_match_dp(group):
+    """Remat (each VAE block recomputed in the backward) under trainer.fsdp
+    with bf16 mixed precision: the recompute runs on the bf16 copies of the
+    gathered parameters the forward saw, so the two steps equal the same
+    remat bf16 steps without FSDP (aux rel 1e-4, update rel-L2 1e-3)."""
+    a, b = (o["gan_fsdp_remat_bf16"] for o in group["out"])
+    _check_gan(a, group["out"][0]["gan_dp_remat_bf16"])
+    assert a["fraction"] < 0.6, a["fraction"]
+    for n in a["p1"]:
+        np.testing.assert_array_equal(a["p1"][n], b["p1"][n])
+
+
+def test_fsdp_resume_across_ema_toggle(group):
+    """A sharded run saved at steps 1 and 2 with trainer.ema_decay on
+    resumes with it off, and the reverse: each time the newest step (2,
+    not an older one, not a fresh start) into shards with the saved params
+    and moments; turned on, the EMA is seeded from the restored params and
+    sharded as they are."""
+    for o in group["out"]:
+        off = o["ema_toggle"][(0.9, None)]
+        on = o["ema_toggle"][(None, 0.9)]
+        for r in (off, on):
+            assert r["resumed"] and r["step"] == 2, r
+            assert r["equal"] and r["moments_equal"], r
+        assert off["extra"] is None
+        assert on["extra"] == ["ema_params"]
+        assert on["ema_sharded"] > 0
+        for k, (same_sharding, seeded) in on["ema"].items():
+            assert same_sharding and seeded, k
 
 
 def test_two_halves_in_one_process_equal_two_ranks(group, tmp_path):

@@ -471,20 +471,25 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch, tmp_path):
     assert batch["x"].is_cpu and not batch["x"].is_pinned()
 
 
+# bench.py and __graft_entry__.py import the JAX package: a port script
+# reaching either reaches JAX
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex",
-             "weatherforecastingtoolkit_tpu")
+             "weatherforecastingtoolkit_tpu", "bench", "__graft_entry__")
+ROOT_SCRIPTS = ("chip_smoke.py", "bf16_gate_draws.py", "graft_entry_torch.py",
+                "kernel_timing.py")
 
 
 def _port_files():
     files = sorted((REPO / "weatherforecastingtoolkit_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "experiments_gpu").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "bf16_gate_draws.py"]
+    return files + [REPO / name for name in ROOT_SCRIPTS]
 
 
 def test_port_imports_no_jax():
-    """No import statement in the port, experiments_gpu/ or the chip
-    scripts names JAX, flax, optax or the JAX package, and importing every
-    port module in a fresh interpreter loads none of them."""
+    """No import statement in the port, experiments_gpu/ or the root
+    scripts of the port names JAX, flax, optax, the JAX package, bench.py
+    or __graft_entry__.py, and importing every module of the port and of
+    experiments_gpu/ in a fresh interpreter loads none of them."""
     bad = []
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -498,7 +503,8 @@ def test_port_imports_no_jax():
                     if n.split(".")[0] in FORBIDDEN]
     assert not bad
     modules = [".".join(p.relative_to(REPO).with_suffix("").parts)
-               for p in _port_files()[:-2] if p.name != "__init__.py"]
+               for p in _port_files()[:-len(ROOT_SCRIPTS)]
+               if p.name != "__init__.py"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             f"hit = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"

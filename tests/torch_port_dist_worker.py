@@ -3,8 +3,9 @@
     python tests/torch_port_dist_worker.py CASE RANK WORLD PORT DIR
 
 CASE "parallel" (tests/test_torch_port_parallel.py) runs, in one process
-group, the data-parallel, fully-sharded and tensor-parallel steps, the
-trainer on an auto-sharded SEVIR tree with the sharded resume, a resume
+group, the data-parallel, fully-sharded (also with remat and bf16) and
+tensor-parallel steps, the trainer on an auto-sharded SEVIR tree with the
+sharded resume, a sharded resume across an ema_decay toggle, a resume
 that one rank cannot read, dp serving and the member-parallel ensemble; CASE "multihost"
 (tests/test_torch_port_multihost.py) runs a DP and an FSDP step, each rank
 fed its own event shard by SEVIRDataModule. Inputs come from DIR (written
@@ -93,7 +94,7 @@ def np_tree(tensors):
     return out
 
 
-def gan_task():
+def gan_task(remat=False, mixed_precision=False):
     from weatherforecastingtoolkit_tpu_torch.models.losses.gan import (
         NLayerDiscriminator)
     from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
@@ -109,25 +110,27 @@ def gan_task():
 
     return make_vae_gan_task(
         name="gan", generator_apply=generator_apply,
-        gen_init=lambda s, d: AutoencoderKL(**GAN_VAE, device=d, seed=s),
+        gen_init=lambda s, d: AutoencoderKL(**GAN_VAE, remat=remat, device=d,
+                                            seed=s),
         disc_apply=lambda d, f: d(f),
         disc_init=lambda s, d: NLayerDiscriminator(1, 16, 2, device=d,
                                                    seed=s),
         disc_tx=adam(1e-4, b1=0.5, b2=0.9),
         last_layer_path="decoder.conv_out.weight", kl_weight=1e-6,
-        disc_weight=0.5, disc_start=0)
+        disc_weight=0.5, disc_start=0, mixed_precision=mixed_precision)
 
 
-def gan_run(root, name, batch, mesh=None, fsdp=False):
-    """GAN_STEPS Trainer steps: (aux per step, params before and after,
-    discriminator before and after, shard fraction of the params)."""
+def gan_run(root, name, batch, mesh=None, fsdp=False, **task_kw):
+    """GAN_STEPS Trainer steps of ``gan_task(**task_kw)``: (aux per step,
+    params before and after, discriminator before and after, shard
+    fraction of the params)."""
     from weatherforecastingtoolkit_tpu_torch.parallel.fsdp import (
         shard_fraction)
     from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
 
     cfg = config(root, name, fsdp=fsdp, steps=GAN_STEPS, lr=1e-4,
                  weight_decay=1e-4, grad_clip=1.0)
-    tr = Trainer(cfg, gan_task(), mesh=mesh, device=CPU)
+    tr = Trainer(cfg, gan_task(**task_kw), mesh=mesh, device=CPU)
     state = tr.init_state()
     disc = state.extra["disc_params"]
     out = {"p0": np_tree(dict(state.params.named_parameters())),
@@ -163,6 +166,53 @@ def recon_step(tr, state, batch):
     out = {"loss": float(aux["loss"]), "grad_norm": float(aux["grad_norm"]),
            "grads": np_tree({k: p.grad for k, p in params.items()}),
            "before": before, "params": np_tree(params)}
+    tr.close()
+    return out
+
+
+def ema_toggle(root, mesh, name, before, after, batch):
+    """Two FSDP steps with ``trainer.ema_decay=before``, each saved; then a
+    resume with ``ema_decay=after``: the step it resumed, whether its
+    params and moments equal the saved ones, and per EMA leaf whether it is
+    a shard of its parameter's shape holding the resumed value (seeded
+    from the params) or the saved EMA's."""
+    from weatherforecastingtoolkit_tpu_torch.models.conv_ae import PosAwareAE
+    from weatherforecastingtoolkit_tpu_torch.training.tasks import (
+        reconstruction_task)
+    from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
+
+    def trainer(ema, resume=False):
+        cfg = config(root, name, fsdp=True)
+        if ema is not None:
+            cfg.trainer.ema_decay = ema
+        model = PosAwareAE(**dict(SMALL_AE, latent_dim=512), device=CPU)
+        return Trainer(cfg, reconstruction_task(model), mesh=mesh,
+                       device=CPU, resume=resume)
+
+    tr = trainer(before)
+    st = tr.init_state()
+    for _ in range(2):
+        st, _ = tr._train_step(st, batch)
+        tr.ckpt.save(int(st.step), st)
+    tr.close()
+    tr = trainer(after, resume=True)
+    s2 = tr.init_state()
+    params = dict(s2.params.named_parameters())
+    out = {"resumed": tr._resume_state is not None, "step": int(s2.step),
+           "equal": all(torch.equal(a, b) for a, b in zip(
+               st.params.parameters(), s2.params.parameters())),
+           "moments_equal": all(torch.equal(a, b) for a, b in zip(
+               st.opt_state["mu"] + st.opt_state["nu"],
+               s2.opt_state["mu"] + s2.opt_state["nu"])),
+           "extra": None if s2.extra is None else sorted(s2.extra)}
+    if s2.extra is not None:
+        saved = st.extra["ema_params"] if st.extra is not None else None
+        out["ema"] = {
+            k: (getattr(t, "_fsdp", None) == getattr(params[k], "_fsdp", None),
+                torch.equal(t, params[k] if saved is None else saved[k]))
+            for k, t in s2.extra["ema_params"].items()}
+        out["ema_sharded"] = sum(hasattr(t, "_fsdp")
+                                 for t in s2.extra["ema_params"].values())
     tr.close()
     return out
 
@@ -219,6 +269,12 @@ def parallel(rank, world, port, root):
                                     mesh)}
     out["gan_dp"] = gan_run(root, "gan_dp", gan_batch, mesh)
     out["gan_fsdp"] = gan_run(root, "gan_fsdp", gan_batch, mesh, fsdp=True)
+    # remat under FSDP with bf16 mixed precision, against the same step
+    # without FSDP
+    for key, fsdp in (("gan_dp_remat_bf16", False),
+                      ("gan_fsdp_remat_bf16", True)):
+        out[key] = gan_run(root, key, gan_batch, mesh, fsdp=fsdp, remat=True,
+                           mixed_precision=True)
 
     # -- init_sharded: each rank's shards of the plain init, nothing whole
     def init_fn(seed, device):
@@ -276,6 +332,14 @@ def parallel(rank, world, port, root):
             st.opt_state["mu"] + st.opt_state["nu"],
             s2.opt_state["mu"] + s2.opt_state["nu"]))}
     tr2.close()
+
+    # -- resume of a sharded run across an ema_decay toggle, both ways: two
+    # steps saved, the newest restored into shards, the EMA sharded
+    out["ema_toggle"] = {}
+    for before, after in ((0.9, None), (None, 0.9)):
+        out["ema_toggle"][(before, after)] = ema_toggle(
+            root, mesh, f"ema_{before}_{after}", before, after,
+            {"vil": shard_batch(recon_batch, mesh)})
 
     # -- resume agreed by every rank: rank 1 cannot read the newest step,
     # so both ranks resume the one before it

@@ -69,12 +69,16 @@ def lecun_normal_(weight: torch.Tensor, rng: np.random.Generator,
     gives the same weights under every torch version (torch's own
     ``trunc_normal_`` changed its sampler between versions)."""
     v = rng.standard_normal(weight.shape)
-    out = np.abs(v) > 2.0
-    while out.any():                      # truncate at two sigma by redrawing
-        v[out] = rng.standard_normal(int(out.sum()))
-        out = np.abs(v) > 2.0
-    std = (scale / (fan_in or weight[0].numel())) ** 0.5 / _TRUNC_STD
-    return weight.copy_(torch.from_numpy(v * std))
+    # truncate at two sigma by redrawing, in index order (the values of a
+    # redraw of the whole array's out-of-range mask, each round), testing
+    # again only the values just drawn
+    flat = v.reshape(-1)
+    idx = np.flatnonzero(np.abs(flat) > 2.0)
+    while idx.size:
+        flat[idx] = rng.standard_normal(idx.size)
+        idx = idx[np.abs(flat[idx]) > 2.0]
+    v *= (scale / (fan_in or weight[0].numel())) ** 0.5 / _TRUNC_STD
+    return weight.copy_(torch.from_numpy(v))
 
 
 @torch.no_grad()

@@ -240,6 +240,10 @@ class CheckpointManager:
         _check(target, saved)
         return _restore(target, saved)
 
+    def is_saving_in_progress(self) -> bool:
+        """True while an async write is still running."""
+        return self._thread is not None and self._thread.is_alive()
+
     def wait_until_finished(self) -> None:
         if self._thread is not None:
             self._thread.join()
@@ -250,6 +254,28 @@ class CheckpointManager:
 
     def close(self) -> None:
         self.wait_until_finished()
+
+
+def restore_params(run_dir: str, module: torch.nn.Module) -> int:
+    """Load the params of a run directory's newest checkpoint into
+    ``module`` in place, as a frozen stage-1 model is loaded; returns the
+    step. Raises FileNotFoundError for a missing run or one without
+    checkpoints, and ValueError where the saved params' names, shapes or
+    dtypes differ from the module's: it never leaves the module's own
+    weights in place of a run's."""
+    if not os.path.isdir(os.path.join(run_dir, "checkpoints")):
+        raise FileNotFoundError(f"no run directory with checkpoints at "
+                                f"{run_dir}")
+    mgr = CheckpointManager(run_dir)
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"No checkpoints in {mgr.ckpt_dir}")
+    saved = mgr.load(step)
+    if not isinstance(saved, Mapping) or "params" not in saved:
+        raise ValueError(f"{mgr._step_dir(step)} holds no training state")
+    _check(module, saved["params"], "params")
+    _restore(module, saved["params"])
+    return step
 
 
 def find_latest_ckpt(experiment_path: str, experiment_name: str, target: Any,
@@ -282,6 +308,8 @@ def find_latest_ckpt(experiment_path: str, experiment_name: str, target: Any,
     for run_id, run_dir, step in candidates:
         step_dir = os.path.join(run_dir, "checkpoints", str(step))
         if os.path.exists(os.path.join(step_dir, _DCP_META)):
+            from torch.distributed.checkpoint.api import CheckpointException
+
             # sharded: restore straight into each template's shards
             for tmpl, convert in templates:
                 if not _has_shards(tmpl):
@@ -289,7 +317,9 @@ def find_latest_ckpt(experiment_path: str, experiment_name: str, target: Any,
                 err = None
                 try:
                     restored = restore_sharded(step_dir, tmpl)
-                except Exception as e:  # noqa: BLE001 — corrupt or mismatch
+                # corrupt or mismatched; a key the step lacks comes as a
+                # CheckpointException, which derives from BaseException
+                except (Exception, CheckpointException) as e:  # noqa: BLE001
                     err = f"{type(e).__name__}: {str(e)[:200]}"
                 if _agreed(err is None, mesh) is True:
                     return (convert(restored) if convert is not None

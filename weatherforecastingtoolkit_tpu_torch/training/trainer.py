@@ -140,7 +140,15 @@ def derive_steps(cfg: Config, n_train_batches: int, n_val_batches: int,
 
 
 def _ema_of(params: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: p.detach().clone() for k, p in params.named_parameters()}
+    """A copy of each parameter; an FSDP shard's copy is tagged as the same
+    shard (``parallel/fsdp.py``), so the EMA is saved and restored sharded
+    as the params are."""
+    def copy(p):
+        t = p.detach().clone()
+        if hasattr(p, "_fsdp"):
+            t._fsdp = p._fsdp
+        return t
+    return {k: copy(p) for k, p in params.named_parameters()}
 
 
 class _NoLogger:
