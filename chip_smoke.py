@@ -46,7 +46,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      first 3 batches (TF32 off, losses rel 1e-4), resume (4 steps, a new
      Trainer(resume=True), 2 more) equal to 6 straight steps (1e-6, cuDNN
      deterministic), and step time, samples/s and peak memory at B=2 and
-     B=32 beside the stencil kernel's time, plain time and bound;
+     B=32 beside the stencil kernel's time (also through the custom op
+     wftk::advection_stencil), plain time and bound; torch.export of the
+     task's prior term at (2, 12, 1, 128, 128): one stencil op, nothing
+     launched in the trace, one launch a call and the eager loss's bits;
   8. latent_forecast_task (Path-B training) on the reference-shape frozen
      VAE + DLinear at B=8: 3 steps with finite losses and the encoder's
      GroupNorm launches, forward only, on every step; then one
@@ -61,7 +64,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      conv (both designs) replayed on three streams beside eager calls, the
      eager calls' bits; per call shape the kernel's time in a CUDA graph,
      its plain time, its bound and, as context only, the bf16 cuDNN conv of
-     that shape;
+     that shape, and the host time a call of the conv and quantize
+     through their custom ops (wftk::int8_conv2d, wftk::int8_quantize)
+     and through the wrappers alone;
  10. quantized serving at full width: the reference VAE calibrated in fp32
      on the B=64 serving batch (bench.py's recipe), the int8_static bf16
      reference call at B=64 (median ms, frames/s, SSIM vs fp32, exactly
@@ -82,7 +87,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      evaluate_protocol (with the VAE ceiling) on two B=16 batches of 25
      frames, both tables printed; card against CPU on one B=2 batch in fp32
      (continuous keys rel 1e-4, CSI/HSS abs 1e-3);
- 12. in a fresh process (chip_smoke.py --train, run after phase 8), GAN
+ 12. in a fresh process (chip_smoke.py --train, the first lane), GAN
      training at bench.py::bench_train's shapes: PosAwareAE(latent_dim=
      2048) + NLayerDiscriminator(1, 64, 3) through make_vae_gan_task, fp32
      (TF32 off) at B x T = 4 x 4 and bf16 mixed precision at 4, 8 and 16 x
@@ -101,7 +106,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      shapes, the GN backward's device time (the plain version's autograd)
      and its share of the step, and the kernel's gradient at one training
      shape against the plain version's autograd;
- 14. in a fresh process (chip_smoke.py --zoo, run after phase 13),
+ 14. in a fresh process (chip_smoke.py --zoo, after --train in its lane),
      AlphaPre + the physics prior at experiments/alphapre/config.yaml's
      widths (dim 32, 3 AmpCells, spec_num 20, 13->12 frames of 128^2, B=2,
      prior switched on): before training the card against the CPU on the
@@ -127,7 +132,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
  17. one reconstruction_task step (experiments_gpu/ae_recon) for each of
      vit_ae, structured_conv_ae, conv_autoencoder and attention_charged_ae
      at the registry's default widths (2 x 2 frames, 2 steps each);
- 18. in a fresh process (chip_smoke.py --data, run after --zoo), the SEVIR
+ 18. in a fresh process (chip_smoke.py --data, the second lane), the SEVIR
      data layer: a sevirlr tree (CATALOG.csv of 272 VIL events at 128^2 x
      25, a week apart, 240 up to the 2019-06-01 split date and 32 after;
      an empty data/vil/; the train and test packed caches), written by
@@ -184,7 +189,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      demo_path_b.py at 50 + 50 steps (its defaults otherwise: 64^2; the
      panel PNG) and with --forecaster earthformer at 50 + 50 steps (one
      stencil launch a forecaster step);
- 27. in a fresh process (chip_smoke.py --dist, run after --cli), the
+ 27. in a fresh process (chip_smoke.py --dist, run after the lanes), the
      distributed layer at world size 1 over NCCL: make_dp_serving_fn of
      the reference pipeline, bf16, B=64 (host uint8 frames in, numpy out):
      the plain pipeline's bits, 42 GN launches a call, ms a call beside the
@@ -192,6 +197,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
  28. export_pipeline -> load_pipeline (torch.export, symbolic batch) of
      the same pipeline: the eager bits at B=64 and B=8, 42 GN launches a
      call through the custom op wftk::group_norm_silu, ms against eager;
+     28b. the same for bench.py's int8 pipelines (experiments_gpu/perf/
+     bench_helpers.py::build_pipeline, bf16, calibrated in fp32 on the
+     serving batch): int8_static at the reference shape (B=64, exported
+     after an eager call) and the fast VAE under INT8_MIXED_SPEC (B=256,
+     exported before its first eager call, whose eager call then keeps
+     the bits of a pipeline never exported): the ops called once an int8
+     conv, no weight quantized in the program, nothing launched by the
+     export, the eager bits at the export batch and B=8 with 56/56/42 and
+     4/4/30 launches (int8 conv, quantize, GN), export and load seconds,
+     ms against eager in turns; then the cuda-marked tests of
+     tests/test_torch_port_ops.py in a fresh pytest process (the three
+     ops on the card: opcheck, the kernels' bits, one kernel node a call,
+     torch.export);
  29. Trainer(mesh=...) on the fast VAE's GAN step (experiments_gpu/perf/
      fast_vae_train.py::build_task(FAST_SHAPE), bf16, 16 x 4, cuDNN
      deterministic): the non-mesh Trainer's bits on 3 steps (losses,
@@ -206,7 +224,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      against remat without a mesh, 3 steps: aux rel 1e-5, parameters
      rel-L2 1e-5, the same GN launches;
  31. two ranks sharing the card over gloo (chip_smoke.py --dist-rank, two
-     processes; NCCL refuses two ranks a GPU), Trainer(mesh=...) DP steps
+     processes started after phase 28b; NCCL refuses two ranks a GPU),
+     Trainer(mesh=...) DP steps
      of the same task on 8 x 4 rows each against one rank on the 16 x 4
      batch, 2 steps, fp32 (TF32 off) and bf16: the first step's gradient
      averages equal to the mean of the ranks' own gradients (sent point to
@@ -238,14 +257,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (two sequences) against the plain version's bits on its own input;
  and, after phase 9, the int8 modes' gradients on the card against the
  CPU's (rel 1e-5).
-The kernels build in parallel (one nvcc per source). fp32 runs with TF32
-off throughout. The line before the last is {"kernels": [...]}; the last line
-is {"ok": true, "device": {...}}. Without a GPU it exits 2 and prints no
-result.
+The kernels build in parallel (one nvcc per source). Phases 12-17
+(--train, then --zoo) and 18-26b (--data, then --cli) run as two lanes
+side by side, so the times they print are not standalone readings (each
+flag alone gives those); phases 15 and 21-22 (the lanes' largest on the
+card) and 23 hold a shared file lock, so 15 never runs beside the other
+two. Section 5's CPU side runs in a thread beside phases 3-4, phase 10's
+beside --dist and --perf. The card's least free memory, every process on
+it counted, is logged for each fresh process and for the lanes. fp32 runs
+with TF32 off throughout. The line before the last is {"kernels": [...]};
+the last line is {"ok": true, "device": {...}}. Without a GPU it exits 2
+and prints no result.
 """
 
 import collections
 import concurrent.futures
+import contextlib
 import copy
 import json
 import os
@@ -254,6 +281,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -364,6 +392,11 @@ STENCIL_CLASSES = [(2, 12, 1, 128, 128), (32, 12, 1, 128, 128),
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+def since(t0):
+    """How far into the run a phase ended, for the run's time budget."""
+    return f"ended {time.perf_counter() - t0:.1f} s into the run"
 
 
 def sass_count(library, opcode):
@@ -623,6 +656,31 @@ def wall_times(fn, n):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return times, out
+
+
+def in_turns(fns, n):
+    """Median ms of each fn over n rounds, the fns called in turns."""
+    times = [[] for _ in fns]
+    for _ in range(n):
+        for t, fn in zip(times, fns):
+            t.append(wall_times(fn, 1)[0][0])
+    return [statistics.median(t) * 1e3 for t in times]
+
+
+def host_us(fn, reps):
+    """Host time of one call in us: `reps` calls enqueued after a
+    synchronize(), on the host clock, without waiting for the card (each
+    call's device work is longer than its launch, so nothing blocks)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def codec(vae, dtype):
@@ -954,6 +1012,7 @@ def earthformer_phase(tmp):
         ms = graph_ms(lambda: cs.advection_stencil_cuda(x, p), 100)
         plain_ms = graph_ms(lambda: ps._frames_reference(x, *p), 20)
         call_ms = event_ms(lambda: cs.advection_stencil_cuda(x, p), 200)
+        op_ms = event_ms(lambda: ps.advection_diffusion_loss(x, *p), 200)
         bound, bound_by = stencil_bound(shape)
         timing[b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                          bound_by=bound_by)
@@ -965,10 +1024,13 @@ def earthformer_phase(tmp):
             f"ms a step ({busy / wall:.0%}, profiler on), {count:.0f} kernels "
             f"a step; top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
         log(f"    stencil at {shape}: kernel {ms * 1e3:.2f} us (CUDA graph; "
-            f"{call_ms * 1e3:.2f} us a call with the wrapper's host time), "
+            f"{call_ms * 1e3:.2f} us a call with the wrapper's host time, "
+            f"{op_ms * 1e3:.2f} us through the op wftk::advection_stencil), "
             f"plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
             f"({bound_by}, {bound / ms:.1%} of bound)")
         del x
+    prior_export_check((base.physics_prior.u, base.physics_prior.v,
+                        base.physics_prior.kappa))
     return launches, timing[batch], err
 
 
@@ -1281,7 +1343,8 @@ def time_int8_calls(calls, title):
         f"device ms: conv kernel in a CUDA graph / plain / bound (share) | "
         f"bf16 cuDNN conv (context) | quantize kernel / plain / bound")
     keys = ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "cudnn_ms",
-            "q_ms", "q_plain_ms", "q_bound_ms")
+            "q_ms", "q_plain_ms", "q_bound_ms", "op_us", "wrap_us",
+            "q_op_us", "q_wrap_us")
     tot = dict.fromkeys(keys, 0.0)
     for i, ((n, h, w, cin, cout, k, s, pad, dtype), count) in enumerate(
             sorted(calls.items(), key=lambda kv: -np.prod(kv[0][:5]))):
@@ -1309,6 +1372,13 @@ def time_int8_calls(calls, title):
         sv = torch.rand(cin, device="cuda") / 40 + 1e-3
         q_ms = graph_ms(lambda: ic.quantize_nhwc_cuda(x, sv), 10)
         q_plain = event_ms(lambda: ic.quantize_nhwc_plain(x, sv), 2)
+        # host time a call, serving's inference mode: through the custom
+        # ops (the public functions) and the wrappers alone
+        with torch.inference_mode():
+            op_us = host_us(lambda: ic.int8_conv2d_nhwc(*args), 20)
+            wrap_us = host_us(lambda: ic.int8_conv2d_nhwc_cuda(*args), 20)
+            q_op_us = host_us(lambda: ic.quantize_nhwc(x, sv), 20)
+            q_wrap_us = host_us(lambda: ic.quantize_nhwc_cuda(x, sv), 20)
         # x read, its Cin codes written (not the padding), the scales read
         q_bound = 1e3 * (x.numel() * (x.element_size() + 1) + 4 * cin
                          ) / HBM_BYTES_PER_S
@@ -1316,19 +1386,28 @@ def time_int8_calls(calls, title):
             f"{ms:.4f} / {plain:.2f} / {bound:.4f} ({bound / ms:.0%}, "
             f"{'ops' if ops_ms >= bytes_ms else 'bytes'}) | {cudnn:.4f} | "
             f"{q_ms:.4f} / {q_plain:.4f} / {q_bound:.4f} "
-            f"({q_bound / q_ms:.0%})")
+            f"({q_bound / q_ms:.0%}) | host us a call, op / wrapper: conv "
+            f"{op_us:.1f} / {wrap_us:.1f}, quantize {q_op_us:.1f} / "
+            f"{q_wrap_us:.1f}")
         for key, v in zip(keys, (ms, plain, bound, bytes_ms, ops_ms, cudnn,
-                                 q_ms, q_plain, q_bound)):
+                                 q_ms, q_plain, q_bound, op_us, wrap_us,
+                                 q_op_us, q_wrap_us)):
             tot[key] += count * v
         del xq, wq, x16, x
         torch.cuda.empty_cache()
-    log(f"  per call ({sum(calls.values())} int8 convs): conv kernel "
+    n_calls = sum(calls.values())
+    log(f"  per call ({n_calls} int8 convs): conv kernel "
         f"{tot['ms']:.3f} ms in CUDA graphs, plain {tot['plain_ms']:.2f}, "
         f"bound {tot['bound_ms']:.3f} ({tot['bound_ms'] / tot['ms']:.1%} of "
         f"the graph time; bytes {tot['bytes_ms']:.3f}, operations "
         f"{tot['ops_ms']:.3f}); bf16 cuDNN {tot['cudnn_ms']:.3f}; quantize "
         f"{tot['q_ms']:.3f}, plain {tot['q_plain_ms']:.3f}, bound "
-        f"{tot['q_bound_ms']:.3f} ({tot['q_bound_ms'] / tot['q_ms']:.1%})")
+        f"{tot['q_bound_ms']:.3f} ({tot['q_bound_ms'] / tot['q_ms']:.1%}); "
+        f"host time through the ops {(tot['op_us'] + tot['q_op_us']) / 1e3:.3f}"
+        f" ms, the wrappers alone "
+        f"{(tot['wrap_us'] + tot['q_wrap_us']) / 1e3:.3f} ms: the ops' "
+        f"dispatch {(tot['op_us'] - tot['wrap_us']) / n_calls:.1f} us a conv, "
+        f"{(tot['q_op_us'] - tot['q_wrap_us']) / n_calls:.1f} us a quantize")
     return tot
 
 
@@ -1348,9 +1427,10 @@ def calibrate_vae(cfg, frames):
     return calibrate(lambda m, f: m.decode(m.encode(f).mode()), cvae, [flat])
 
 
-def int8_serving_phase(frames, fast_frames, dlinear, out32, out_f32):
-    """Phase 10: quantized serving at full width, card against CPU. Returns
-    (the two calls' int8 conv shapes, the counted launches)."""
+def serving_cpu_refs(x):
+    """Section 5's CPU side, which needs only the frames: the reference
+    pipeline (seed 0 VAE, plain GroupNorm) on sequences 0-1 (host uint8
+    frames) in fp32 and bf16. Returns (fp32 out, bf16 out, its seconds)."""
     import torch
 
     from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
@@ -1358,13 +1438,73 @@ def int8_serving_phase(frames, fast_frames, dlinear, out32, out_f32):
         make_forecast_pipeline)
     from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
         AutoencoderKL)
+
+    t0 = time.perf_counter()
+    vae_cpu = AutoencoderKL(**REFERENCE_VAE, seed=0, device="cpu")
+    dl_cpu = DLinear(T_IN, T_OUT, kernel_size=25, device="cpu")
+    cpu32 = make_forecast_pipeline(device="cpu", **codec(
+        vae_cpu, torch.float32))(dl_cpu, x)
+    cpu16 = make_forecast_pipeline(device="cpu", **codec(
+        copy.deepcopy(vae_cpu).to(torch.bfloat16), torch.bfloat16))(dl_cpu, x)
+    return cpu32, cpu16, time.perf_counter() - t0
+
+
+def int8_vae(cfg, mode, qscales, device=None):
+    """A bf16 VAE of `cfg` (seed 0 weights) in conv mode `mode` with
+    `qscales` loaded."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+
+    vae = AutoencoderKL(**cfg, conv_mode=mode, seed=0, device=device)
+    vae.load_qscales(qscales)
+    return vae.to(torch.bfloat16)
+
+
+def int8_cpu_refs(seqs, fast_seqs, cpu32):
+    """Phase 10's CPU side, which needs nothing from the card: for the
+    reference VAE in int8_static and the fast VAE under INT8_MIXED_SPEC, on
+    sequences 0-1 (host uint8 frames), the CPU's calibration, its bf16 int8
+    VAE, its fp32 pipeline output (the reference's is section 5's `cpu32`)
+    and its int8 pipeline output. Returns ([(qscales, int8 VAE, fp32 out,
+    int8 out)] in that order, its seconds)."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
+    from weatherforecastingtoolkit_tpu_torch.models.rollout import (
+        make_forecast_pipeline)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+
+    t0 = time.perf_counter()
+    dl_cpu = DLinear(T_IN, T_OUT, kernel_size=25, device="cpu")
+    refs = []
+    for cfg, mode, x, ref32 in ((REFERENCE_VAE, "int8_static", seqs, cpu32),
+                                (FAST_VAE, INT8_MIXED_SPEC, fast_seqs, None)):
+        q_cpu = calibrate_vae(cfg, x)
+        if ref32 is None:
+            ref32 = make_forecast_pipeline(device="cpu", **codec(
+                AutoencoderKL(**cfg, seed=0, device="cpu"), torch.float32))(
+                dl_cpu, x)
+        vae8_cpu = int8_vae(cfg, mode, q_cpu, "cpu")
+        cpu8 = make_forecast_pipeline(device="cpu", **codec(
+            vae8_cpu, torch.bfloat16))(dl_cpu, x)
+        refs.append((q_cpu, vae8_cpu, ref32, cpu8))
+    return refs, time.perf_counter() - t0
+
+
+def int8_serving_phase(frames, fast_frames, dlinear, out32, out_f32,
+                       cpu_refs):
+    """Phase 10: quantized serving at full width, card against CPU
+    (cpu_refs: a future of int8_cpu_refs on sequences 0-1). Returns (the
+    two calls' int8 conv shapes, the counted launches)."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.models.rollout import (
+        make_forecast_pipeline)
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
-
-    def int8_vae(cfg, mode, qscales, device=None):
-        vae = AutoencoderKL(**cfg, conv_mode=mode, seed=0, device=device)
-        vae.load_qscales(qscales)
-        return vae.to(torch.bfloat16)
 
     def counted(name, fn, n, per_call, batch):
         ic.conv_launches = ic.quantize_launches = groupnorm.launches = 0
@@ -1412,19 +1552,14 @@ def int8_serving_phase(frames, fast_frames, dlinear, out32, out_f32):
     torch.cuda.empty_cache()
 
     # card against CPU on two sequences, the CPU's calibration on both
-    dl_cpu = DLinear(T_IN, T_OUT, kernel_size=25, device="cpu")
     t0 = time.perf_counter()
-    for cfg, mode, card_vae, pipe, seqs, ref in (
-            (REFERENCE_VAE, "int8_static", vae8, pipe8, frames[:2], out32[:2]),
-            (FAST_VAE, INT8_MIXED_SPEC, fmix, pipe_m, fast_frames[:2],
-             out_f32[:2])):
-        q_cpu = calibrate_vae(cfg, seqs.cpu())
-        vae_cpu = AutoencoderKL(**cfg, seed=0, device="cpu")
-        cpu32 = make_forecast_pipeline(device="cpu", **codec(
-            vae_cpu, torch.float32))(dl_cpu, seqs.cpu())
-        vae8_cpu = int8_vae(cfg, mode, q_cpu, "cpu")
-        cpu8 = make_forecast_pipeline(device="cpu", **codec(
-            vae8_cpu, torch.bfloat16))(dl_cpu, seqs.cpu())
+    refs, cpu_s = cpu_refs.result()
+    log(f"  the CPU side ({cpu_s:.2f} s in a thread of its own, beside "
+        f"phases 27-33) waited for {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for mode, card_vae, pipe, seqs, ref, (q_cpu, vae8_cpu, cpu32, cpu8) in zip(
+            ("int8_static", INT8_MIXED_SPEC), (vae8, fmix), (pipe8, pipe_m),
+            (frames[:2], fast_frames[:2]), (out32[:2], out_f32[:2]), refs):
         card_vae.load_qscales(q_cpu)
         n_convs, out = int8_convs_match_cpu(card_vae, vae8_cpu,
                                             lambda: pipe(dlinear, seqs))
@@ -2365,7 +2500,11 @@ def zoo_phase():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
     try:
         alphapre_phase(tmp)
-        custom_akl_phase()
+        torch.cuda.empty_cache()
+        log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+        with card_lock("phase 15"):
+            custom_akl_phase()
+        log(f"phase 15: {time.perf_counter() - t0:.1f} s")
         token_vit_phase(tmp)
         registry_phase(tmp)
     finally:
@@ -2384,12 +2523,15 @@ def train_phase():
         return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gan_")
     try:
         gan_bench_phase(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     fast_vae_train_phase()
+    log(f"phases 12-13: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -2977,7 +3119,10 @@ def data_phase():
     tmp = keep or tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
         tree = data_loader_phase(tmp)
+        log(f"phase 18: {time.perf_counter() - t0:.1f} s")
         cli_earthformer_phase(tree, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 19: {time.perf_counter() - t0:.1f} s")
         latent_cli_phase(tree, tmp)
     finally:
         if keep is None:
@@ -3497,12 +3642,20 @@ def cli_phase():
                 write_tree(trees[preset], preset)
                 log(f"{preset} tree written in {time.perf_counter() - tick:.2f}"
                     " s (make_synthetic_sevir_cache)")
-        tot, err = gn_two_pass_phase()
-        sevir384_phase(trees, tmp)
-        vae_gan_phase(trees, tmp)
+        with card_lock("phases 21-22"):
+            tot, err = gn_two_pass_phase()
+            sevir384_phase(trees, tmp)
+        log(f"phases 21-22: {time.perf_counter() - t0:.1f} s")
+        with card_lock("phase 23"):
+            vae_gan_phase(trees, tmp)
+        log(f"phase 23: {time.perf_counter() - t0:.1f} s")
         latent_ae_phase(trees, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 24: {time.perf_counter() - t0:.1f} s")
         evaluate_sweep_phase(trees, tmp)
+        log(f"phase 25: {time.perf_counter() - t0:.1f} s")
         quality_phase()
+        log(f"phase 26: {time.perf_counter() - t0:.1f} s")
         demo_phase(tmp)
     finally:
         if keep is None:
@@ -3582,14 +3735,6 @@ def dist_serving_phase(mesh, tmp):
         torch.cuda.synchronize()
         return out, groupnorm.launches
 
-    def in_turns(fns, n):
-        """Median ms of each fn over n rounds, called in turns."""
-        times = [[] for _ in fns]
-        for _ in range(n):
-            for t, fn in zip(times, fns):
-                t.append(wall_times(fn, 1)[0][0])
-        return [statistics.median(t) * 1e3 for t in times]
-
     log(f"phase 27: make_dp_serving_fn of the reference pipeline, bf16, "
         f"B={BATCH}, world size 1 over NCCL (host uint8 frames in, numpy out)")
     want = pipe(dlinear, frames).cpu().numpy()
@@ -3630,6 +3775,171 @@ def dist_serving_phase(mesh, tmp):
         f"at B={BATCH} and B=8, 42 GN launches a call through the op; "
         f"{exported_ms:.2f} ms a call against eager {eager_ms:.2f} ms "
         "(medians of 5 in turns)")
+
+
+def int8_export_phase(tmp):
+    """Phase 28b: export_pipeline -> load_pipeline of bench.py's two int8
+    pipelines (experiments_gpu/perf/bench_helpers.py::build_pipeline, bf16,
+    calibrated in fp32 on the serving batch): the int8_static reference
+    shape (B=64), exported after an eager call, and the fast VAE under
+    INT8_MIXED_SPEC (B=256), exported before its first eager call, whose
+    eager call then keeps the bits of a pipeline never exported. Each
+    program gives the eager bits at its export batch and at B=8 with the
+    eager call's launches (int8 conv, quantize, GroupNorm), calls the int8
+    ops once an int8 conv and quantizes no weight (the codes are
+    constants); export and load seconds, and ms against eager in turns."""
+    import torch
+
+    from experiments_gpu.perf.bench_helpers import (
+        FAST_VAE_KW, build_pipeline, calibrate_qscales, frames_for)
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
+    from weatherforecastingtoolkit_tpu_torch.parallel.serving import (
+        export_pipeline, load_pipeline)
+
+    def counted(fn):
+        ic.conv_launches = ic.quantize_launches = groupnorm.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (ic.conv_launches, ic.quantize_launches,
+                     groupnorm.launches)
+
+    log("phase 28b: the int8 pipelines through export_pipeline -> "
+        "load_pipeline (the int8 conv and quantize kernels as the custom "
+        "ops wftk::int8_conv2d and wftk::int8_quantize)")
+    for name, kw, mode, batch, per_call, export_first in (
+            ("int8_static reference", None, "int8_static", BATCH,
+             (56, 56, 42), False),
+            ("fast VAE INT8_MIXED_SPEC", FAST_VAE_KW, INT8_MIXED_SPEC,
+             FAST_BATCH, (4, 4, 30), True)):
+        frames = frames_for(batch)
+        qs = calibrate_qscales(frames, kw)
+        pipe, fc = build_pipeline("bfloat16", mode, vae_kwargs=kw,
+                                  qscales=qs)
+        if not export_first:
+            pipe(fc, frames)
+        path = os.path.join(tmp, "int8.pt2")
+        kernel_launches = (ic.conv_launches, ic.quantize_launches,
+                           groupnorm.launches)
+        t0 = time.perf_counter()
+        program = export_pipeline(pipe, fc, frames, path)
+        export_s = time.perf_counter() - t0
+        if (ic.conv_launches, ic.quantize_launches,
+                groupnorm.launches) != kernel_launches:
+            raise AssertionError(f"{name}: the export launched a kernel")
+        graph = str(program.graph)
+        ops = (graph.count("wftk.int8_conv2d"),
+               graph.count("wftk.int8_quantize"),
+               graph.count("wftk.group_norm_silu"))
+        if ops != per_call or "aten.round" in graph:
+            raise AssertionError(f"{name}: the program calls the ops "
+                                 f"{ops} times (expected {per_call}), or "
+                                 "quantizes its weights")
+        del program
+        t0 = time.perf_counter()
+        call = load_pipeline(path)
+        load_s = time.perf_counter() - t0
+        eager = pipe
+        if export_first:
+            eager, _ = build_pipeline("bfloat16", mode, vae_kwargs=kw,
+                                      qscales=qs)
+            if not torch.equal(pipe(fc, frames), eager(fc, frames)):
+                raise AssertionError(f"{name}: the eager call after the "
+                                     "export differs from a pipeline never "
+                                     "exported")
+        for b in (batch, 8):
+            got, launches = counted(lambda: call(frames[:b]))
+            want, eager_launches = counted(lambda: eager(fc, frames[:b]))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: the program at B={b} differs "
+                                     "from the eager pipeline: max abs "
+                                     f"{float((got - want).abs().max())}")
+            if launches != per_call or eager_launches != per_call:
+                raise AssertionError(f"{name} at B={b}: launches {launches} "
+                                     f"exported, {eager_launches} eager, "
+                                     f"expected {per_call}")
+        del got, want
+        eager_ms, exported_ms = in_turns([lambda: eager(fc, frames),
+                                          lambda: call(frames)], 5)
+        log(f"  {name} bf16 B={batch}, exported "
+            f"{'before' if export_first else 'after'} its first eager call"
+            f"{' (whose eager call then gave the bits of a pipeline never exported)' if export_first else ''}: "
+            f"export {export_s:.1f} s, load {load_s:.1f} s, "
+            f"{os.path.getsize(path) / 2**20:.1f} MiB; the program calls "
+            f"wftk::int8_conv2d / int8_quantize / group_norm_silu "
+            f"{'/'.join(map(str, ops))} times, no weight quantized; the "
+            f"eager bits at B={batch} and B=8 with launches "
+            f"{'/'.join(map(str, per_call))} a call; {exported_ms:.2f} ms a "
+            f"call against eager {eager_ms:.2f} ms (medians of 5 in turns)")
+        del pipe, eager, call, frames
+        os.remove(path)
+        torch.cuda.empty_cache()
+
+
+def op_card_tests():
+    """The cuda-marked tests of tests/test_torch_port_ops.py (the three
+    ops on the card: opcheck, the kernels' bits, one kernel node a call,
+    torch.export) through pytest in this process (its kernels are built
+    and loaded), without tests/conftest.py (the card has no JAX); pytest's
+    report goes to stderr."""
+    import pytest
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = pytest.main(["--noconftest", "-m", "cuda", "-q", "-p",
+                          "no:cacheprovider", "--durations=4",
+                          os.path.join(REPO, "tests",
+                                       "test_torch_port_ops.py")])
+    if rc != 0:
+        raise AssertionError(f"the cuda tests of tests/test_torch_port_ops.py "
+                             f"failed (pytest exit code {rc})")
+    log(f"  the cuda tests of tests/test_torch_port_ops.py passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def prior_export_check(coeffs):
+    """torch.export of the Earthformer task's prior term (u, v, kappa one
+    device tensor read as three views, experiments_gpu/earthformer/
+    train.py) at the training shape (2, 12, 1, 128, 128) fp32: the program
+    calls wftk::advection_stencil once, the export launches nothing, and
+    the program's call is one stencil launch with the eager call's bits."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops import stencil as ps
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
+
+    class Prior(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("coeffs", torch.tensor(coeffs,
+                                                        device="cuda"))
+
+        def forward(self, pred):
+            u, v, kappa = self.coeffs
+            return ps.advection_diffusion_prior(pred, u, v, kappa)
+
+    prior = Prior()
+    g = torch.Generator(device="cuda").manual_seed(28)
+    x = torch.rand((2, 12, 1, HW, HW), generator=g, device="cuda")
+    want = prior(x)
+    before = cs.launches
+    t0 = time.perf_counter()
+    program = torch.export.export(prior, (x,))
+    export_s = time.perf_counter() - t0
+    n_ops = str(program.graph).count("wftk.advection_stencil")
+    if n_ops != 1 or cs.launches != before:
+        raise AssertionError(f"prior export: {n_ops} stencil ops, "
+                             f"{cs.launches - before} launches in the trace")
+    module = program.module()
+    cs.launches = 0
+    got = module(x)
+    torch.cuda.synchronize()
+    if cs.launches != 1 or not torch.equal(got, want):
+        raise AssertionError(f"exported prior: {cs.launches} launches, "
+                             f"{float(got)} vs eager {float(want)}")
+    log(f"  torch.export of the prior term at (2, 12, 1, {HW}, {HW}) fp32 "
+        f"in {export_s:.1f} s: one wftk::advection_stencil op, one stencil "
+        f"launch a call, the eager loss's bits ({float(got):.6g})")
 
 
 def dist_train_phase(mesh, tmp):
@@ -4015,10 +4325,28 @@ def dist_rank_phase():
     return 0
 
 
-def two_rank_phase(tmp):
+def start_two_ranks(tmp):
+    """Start phase 31's two rank processes (``chip_smoke.py --dist-rank``)
+    on its 16 x 4 batch; returns (the processes, the batch, their start)
+    for two_rank_phase."""
+    full = np.random.default_rng(1).random(
+        (FAST_TRAIN_BATCH, GAN_T, 1, HW, HW), np.float32)
+    np.save(os.path.join(tmp, "batch.npy"), full)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dist-rank", str(r), str(port), tmp])
+             for r in range(2)]
+    return procs, full, t0
+
+
+def two_rank_phase(tmp, started):
     """Phase 31: two ranks on the one card over gloo (NCCL refuses two ranks
     a GPU): Trainer(mesh=...) DP steps of the fast VAE's GAN task on 8 x 4
     rows each against the one-rank step on the concatenated 16 x 4 batch.
+    The ranks (``started``: start_two_ranks) run beside the ops' card tests
+    and phases 29-30; this process computes what they are held to once
+    they have ended.
 
     Gated, fp32 and bf16: each of the first step's gradient averages (the
     generator's last layer, the rest of the generator, the discriminator)
@@ -4040,30 +4368,30 @@ def two_rank_phase(tmp):
     from experiments_gpu.perf.fast_vae_train import FAST_SHAPE, build_task
     from weatherforecastingtoolkit_tpu_torch.training.trainer import Trainer
 
+    procs, full, t0 = started
     b = FAST_TRAIN_BATCH
-    full = np.random.default_rng(1).random((b, GAN_T, 1, HW, HW), np.float32)
-    np.save(os.path.join(tmp, "batch.npy"), full)
     log(f"phase 31: two ranks on the one card over gloo (CUDA tensors, "
         f"host-staged all-reduce), Trainer(mesh=...) DP steps of the fast "
         f"VAE's GAN task, {b // 2} x {GAN_T} a rank, against one rank on the "
         f"{b} x {GAN_T} batch, {TWO_RANK_STEPS} steps, fp32 (TF32 off) then "
-        "bf16")
-    port = free_port()
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--dist-rank", str(r), str(port), tmp])
-             for r in range(2)]
+        "bf16 (the ranks started after phase 28b)")
+    deadline = time.perf_counter() + 400
     try:
-        for p in procs:
-            p.wait(timeout=400)
+        # the first to fail ends the wait: its peer would sit in a collective
+        while (any(p.poll() is None for p in procs)
+               and not any(p.returncode for p in procs)
+               and time.perf_counter() < deadline):
+            time.sleep(0.2)
     finally:
         for p in procs:
             p.kill()
+            p.wait()
     if any(p.returncode for p in procs):
         raise AssertionError(f"two-rank phase: exit codes "
                              f"{[p.returncode for p in procs]}")
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
-    log(f"  two ranks done in {time.perf_counter() - t0:.1f} s")
+    log(f"  two ranks done {time.perf_counter() - t0:.1f} s after their "
+        f"start")
     batch = {"vil": torch.from_numpy(full).cuda()}
 
     def flat(tensors):
@@ -4195,7 +4523,7 @@ def graft_phase():
 
 def dist_phase():
     """Phases 27-32 in a fresh process (``chip_smoke.py --dist``, run after
-    --cli): the distributed layer on the one card."""
+    the lanes): the distributed layer on the one card."""
     import torch
     import torch.distributed as dist
 
@@ -4224,16 +4552,31 @@ def dist_phase():
         f" in {time.perf_counter() - t0:.2f} s")
     log_free("phase 27")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    started = None
     try:
         dist_serving_phase(mesh, tmp)
         torch.cuda.empty_cache()
+        log(f"phases 27-28: {time.perf_counter() - t0:.1f} s")
+        int8_export_phase(tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 28b: {time.perf_counter() - t0:.1f} s")
+        # phase 31's two ranks (a few GiB of the card) start here and run
+        # beside the ops' card tests and phases 29-30, which take little of it
+        log_free("phase 31's two ranks and the ops' card tests")
+        started = start_two_ranks(tmp)
+        op_card_tests()
         dist_train_phase(mesh, tmp)
         dist.destroy_process_group()
-        torch.cuda.empty_cache()   # the two ranks share the card
-        log_free("phase 31's two ranks")
-        two_rank_phase(tmp)
+        torch.cuda.empty_cache()
+        log(f"phases 29-30: {time.perf_counter() - t0:.1f} s")
+        two_rank_phase(tmp, started)
+        log(f"phase 31: {time.perf_counter() - t0:.1f} s")
         graft_phase()
     finally:
+        if started:
+            for p in started[0]:
+                p.kill()
+                p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phases 27-32: {time.perf_counter() - t0:.1f} s")
     return 0
@@ -4367,13 +4710,129 @@ def perf_phase():
     return 0
 
 
+# the lanes' card lock (run_lanes, card_lock): a file the lanes' processes
+# lock around their phases that take most of the card's memory
+CARD_LOCK = "CHIP_SMOKE_CARD_LOCK"
+
+
+@contextlib.contextmanager
+def card_lock(what):
+    """Hold the lanes' card lock while a phase that takes most of the
+    card's memory runs, and hand the cache back after it; a no-op in a
+    process that runs alone."""
+    path = os.environ.get(CARD_LOCK)
+    if not path:
+        yield
+        return
+    import fcntl
+
+    import torch
+
+    with open(path) as f:
+        t0 = time.perf_counter()
+        fcntl.flock(f, fcntl.LOCK_EX)
+        waited = time.perf_counter() - t0
+        try:
+            yield
+        finally:
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            fcntl.flock(f, fcntl.LOCK_UN)
+    log(f"  ({what} held the lanes' card lock; waited {waited:.1f} s for it)")
+
+
+@contextlib.contextmanager
+def least_free(what):
+    """Log the least free memory of the card, every process on it
+    counted, while the block runs (polled from a thread every 0.2 s)."""
+    import torch
+
+    low = [torch.cuda.mem_get_info()]
+    done = threading.Event()
+
+    def poll():
+        while not done.wait(0.2):
+            free = torch.cuda.mem_get_info()
+            low[0] = min(low[0], free)
+
+    watcher = threading.Thread(target=poll, daemon=True)
+    watcher.start()
+    try:
+        yield
+    finally:
+        done.set()
+        watcher.join()
+        free, total = low[0]
+        log(f"  the card's least free memory during {what}: "
+            f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB")
+
+
 def run_process(*args):
     """``chip_smoke.py *args`` in a fresh process (its failure fails this
-    one); logs its wall time."""
+    one); logs its wall time and the card's least free memory."""
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, os.path.abspath(__file__), *args],
-                   check=True)
+    with least_free(f"chip_smoke.py {args[0]}"):
+        subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                       check=True)
     log(f"chip_smoke.py {args[0]}: {time.perf_counter() - t0:.1f} s")
+
+
+def run_lanes(*lanes):
+    """Each lane (a sequence of ``chip_smoke.py`` argument tuples, run one
+    after another in fresh processes) beside the others, their processes
+    sharing a card lock (card_lock). Each process's standard output goes
+    to a file of its own and is printed, lane by lane, once every lane has
+    ended; a lane stops at its first failure, which fails this process
+    after the other lanes have ended."""
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_lanes_")
+    lock = os.path.join(out_dir, "card.lock")
+    open(lock, "w").close()
+    started = []
+    try:
+        def lane(i):
+            done = []
+            for j, args in enumerate(lanes[i]):
+                if any(rc for _, _, rc, _ in done):
+                    done.append((args, None, None, 0.0))   # never runs
+                    continue
+                path = os.path.join(out_dir, f"{i}_{j}.log")
+                tick = time.perf_counter()
+                with open(path, "w") as out:
+                    proc = subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__), *args],
+                        stdout=out, env={**os.environ, CARD_LOCK: lock})
+                started.append(proc)
+                done.append((args, path, proc.wait(),
+                             time.perf_counter() - tick))
+            return done
+
+        with least_free("the lanes"), \
+                concurrent.futures.ThreadPoolExecutor(len(lanes)) as pool:
+            ran = [f.result() for f in [pool.submit(lane, i)
+                                        for i in range(len(lanes))]]
+        failed = []
+        for done in ran:
+            for args, path, rc, seconds in done:
+                if path is None:
+                    log(f"chip_smoke.py {args[0]}: not run (its lane failed)")
+                    continue
+                with open(path) as f:
+                    sys.stdout.write(f.read())
+                log(f"chip_smoke.py {args[0]}: {seconds:.1f} s (beside the "
+                    f"other lane{'s' if len(lanes) > 2 else ''})")
+                if rc:
+                    failed.append(f"chip_smoke.py {' '.join(args)} exited {rc}")
+    finally:
+        for proc in started:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"lanes {' | '.join(' -> '.join(a[0] for a in procs) for procs in lanes)}"
+        f": {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def main():
@@ -4478,6 +4937,8 @@ def main():
         log(f"  edge N={n} C={c} {h}x{w} G={groups}: {cases} cases ok, max "
             f"abs err {err:.3g}")
 
+    log(f"phases 1-2: {since(t_main)}")
+
     # --------------------------------------------------- 3. the main path
     events = synthetic_vil_events(BATCH, HW, HW, T_IN, seed=0)
     frames = torch.from_numpy(np.ascontiguousarray(
@@ -4504,6 +4965,11 @@ def main():
                                  f"expected {per_call} x {n}")
         return out
 
+    # section 5's CPU side needs only the frames: a thread computes it while
+    # phases 3-4 hold the card, and is waited for before the host-bound tick
+    cpu_pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu5 = cpu_pool.submit(serving_cpu_refs, frames[:2].cpu())
+    cpu_pool.shutdown(wait=False)
     log(f"phase 3: reference-shape rollout, B={BATCH}, {T_IN}->{T_OUT} "
         f"frames of {HW}x{HW}")
     pipe32 = make_forecast_pipeline(**codec(vae32, torch.float32))
@@ -4541,6 +5007,10 @@ def main():
     log(f"autoregressive vs one-shot SSIM {frame_ssim(out16, out_ar):.5f}")
     del out_ar
 
+    t0 = time.perf_counter()
+    cpu32, cpu16, cpu_s = cpu5.result()
+    log(f"section 5's CPU side ({cpu_s:.2f} s in a thread of its own, beside "
+        f"phases 3-4) waited for {time.perf_counter() - t0:.2f} s")
     # streaming tick, B=1: init once, then one frame per step
     init, step = make_streaming_forecaster(latent_shape=LATENT_SHAPE,
                                            **codec(vae16, torch.bfloat16))
@@ -4602,14 +5072,9 @@ def main():
     del out_f16, fast16, fast32, fvae32, fvae16
     torch.cuda.empty_cache()
 
+    log(f"phases 3-4: {since(t_main)}")
+
     # -------------------- 5. card against CPU, and the kernel's own times
-    vae_cpu = AutoencoderKL(**REFERENCE_VAE, seed=0, device="cpu")
-    dl_cpu = DLinear(T_IN, T_OUT, kernel_size=25, device="cpu")
-    cpu32 = make_forecast_pipeline(device="cpu", **codec(
-        vae_cpu, torch.float32))(dl_cpu, frames[:2].cpu())
-    cpu16 = make_forecast_pipeline(device="cpu", **codec(
-        copy.deepcopy(vae_cpu).to(torch.bfloat16), torch.bfloat16))(
-        dl_cpu, frames[:2].cpu())
     pipe32 = make_forecast_pipeline(**codec(vae32, torch.float32))
     err = float((pipe32(dlinear, frames[:2]).cpu() - cpu32).abs().max())
     s_cpu = frame_ssim(cpu32, cpu16)
@@ -4628,6 +5093,7 @@ def main():
     tot, err = time_gn_calls(gn_calls, f"reference-shape bf16 B={BATCH}")
     torch.cuda.empty_cache()
 
+    log(f"phase 5: {since(t_main)}")
     # torch.profiler in a fresh process: in this one, after the phases
     # above, its sessions came back empty on the card
     run_process("--profile")
@@ -4640,37 +5106,51 @@ def main():
         latent_phase(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phases 6-8: {since(t_main)}")
     # the fresh processes below share the card with this one
     torch.cuda.empty_cache()
 
-    # ------------------------------- 12.-13. GAN training, a fresh process
-    run_process("--train")
-    # ---------------------------------- 14.-17. the model zoo, a fresh process
-    run_process("--zoo")
-    # ------------------ 18.-20. data and the command line, a fresh process,
-    # then 21.-26b., the remaining commands, in another on the same trees
+    # ---- 12.-17. GAN training, then the model zoo, in fresh processes,
+    # beside 18.-20. data and the command line, then 21.-26b. the remaining
+    # commands on the same trees (the two lanes' times are not standalone
+    # readings: each flag runs alone as well)
+    log_free("phases 12-26b")
     shared = tempfile.mkdtemp(prefix="chip_smoke_trees_")
     try:
-        for flag in ("--data", "--cli"):
-            run_process(flag, shared)
+        run_lanes([("--train",), ("--zoo",)],
+                  [("--data", shared), ("--cli", shared)])
     finally:
         shutil.rmtree(shared, ignore_errors=True)
+    log(f"phases 12-26b: {since(t_main)}")
+    # phase 10's CPU side needs nothing from the card: a thread computes it,
+    # on half the cores, while --dist (host-bound, one core or three) runs
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    cpu_pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_refs = cpu_pool.submit(int8_cpu_refs, frames[:2].cpu(),
+                               fast_frames[:2].cpu(), cpu32)
+    cpu_pool.shutdown(wait=False)
+    del cpu32
     # ------------------------ 27.-32. the distributed layer, a fresh process
     run_process("--dist")
     # ------------------------------ 33. the perf scripts, a fresh process
     torch.cuda.empty_cache()
     log_free("phase 33")
     run_process("--perf")
+    log(f"phases 27-33: {since(t_main)}")
 
     # ------------------------------ 9.-11. quantized serving, verification
+    torch.set_num_threads(threads)
     ref_calls, fast_calls, int8_launches, _ = int8_serving_phase(
-        frames, fast_frames, dlinear, out32, out_f32)
-    del out32, out_f32, fast_frames
+        frames, fast_frames, dlinear, out32, out_f32, cpu_refs)
+    del out32, out_f32, fast_frames, cpu_refs
     torch.cuda.empty_cache()
+    log(f"phase 10: {since(t_main)}")
     int8_kernel_phase(ref_calls, fast_calls)
     int8_grad_check()
     time_int8_calls(fast_calls, f"fast VAE INT8_MIXED_SPEC bf16 B={FAST_BATCH}")
     i8 = time_int8_calls(ref_calls, f"int8_static reference bf16 B={BATCH}")
+    log(f"phase 9: {since(t_main)}")
     ensemble_eval_phase(frames, dlinear)
     log(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s")
 

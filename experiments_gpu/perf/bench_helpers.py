@@ -18,9 +18,10 @@ imports neither ``bench.py`` nor anything of the JAX package.
   * ``count_cost`` and ``utilization``: there is no XLA cost model, so FLOPs
     are counted with ``FlopCounterMode`` and bytes as the sum of each aten
     op's input and output bytes (what eager PyTorch moves, one op at a
-    time); the hand-written int8 kernels are reached through ctypes, which
-    no dispatch mode sees, so each int8 conv adds its own count. They are
-    scored against the card's published peaks (``DEVICE_PEAKS``, keyed on
+    time); the hand-written int8 kernels are the custom ops
+    ``wftk::int8_quantize`` and ``wftk::int8_conv2d``, which both modes see
+    as ops (the conv's FLOPs by ``_int8_conv_flop``). They are scored
+    against the card's published peaks (``DEVICE_PEAKS``, keyed on
     ``torch.cuda.get_device_name``): a share of the card's peak, not XLA's
     MFU.
 
@@ -44,6 +45,8 @@ if REPO not in sys.path:
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils.flop_counter import (  # noqa: E402
+    FlopCounterMode, register_flop_formula)
 
 from weatherforecastingtoolkit_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_vil_events)
@@ -53,7 +56,7 @@ from weatherforecastingtoolkit_tpu_torch.models.rollout import (  # noqa: E402
 from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (  # noqa: E402
     AutoencoderKL)
 from weatherforecastingtoolkit_tpu_torch.ops.quant import (  # noqa: E402
-    QConv, calibrate, mixed_mode_uses)
+    calibrate, mixed_mode_uses)
 from weatherforecastingtoolkit_tpu_torch.ops.ssim import ssim  # noqa: E402
 from weatherforecastingtoolkit_tpu_torch.utils.device import (  # noqa: E402
     resolve_device)
@@ -264,48 +267,24 @@ class _Bytes(torch.utils._python_dispatch.TorchDispatchMode):
         return out
 
 
-def _int8_conv_cost(mod: QConv, x: torch.Tensor, y: torch.Tensor):
-    """(ops, bytes) of one int8 conv as the hand-written kernels do it: the
-    quantize pass reads x and writes its codes, the conv reads the codes
-    and the weight codes and writes y."""
-    n, cin, _, _ = x.shape
-    cout, _, kh, kw = mod.weight.shape
-    m = y.numel() // cout
-    ops = 2 * m * cout * cin * kh * kw
-    nbytes = (x.numel() * x.element_size() + 2 * x.numel()
-              + cout * cin * kh * kw + y.numel() * y.element_size())
-    return ops, nbytes
+@register_flop_formula(torch.ops.wftk.int8_conv2d)
+def _int8_conv_flop(xq_shape, wq_shape, *args, out_shape=None, **kwargs):
+    """2 * M * Cout * K of one int8 conv (``wftk::int8_conv2d``): M output
+    positions, K = kh * kw * Cp over the channels the kernel multiplies
+    (the input's padded to a multiple of 16)."""
+    cout, kh, kw, cp = wq_shape
+    return 2 * (out_shape[0] * out_shape[1] * out_shape[2]) * cout * (
+        kh * kw * cp)
 
 
 def count_cost(fn: Callable):
     """(FLOPs, bytes) of one ``fn()`` call, eager op by op, or (None, None)
     where nothing was counted."""
-    from torch.utils._python_dispatch import _disable_current_modes
-    from torch.utils.flop_counter import FlopCounterMode
-
-    extra = [0, 0]
-    orig = QConv.forward
-
-    def forward(self, x):
-        if self.resolved not in ("int8", "int8_static"):
-            return orig(self, x)
-        with _disable_current_modes():
-            y = orig(self, x)
-        ops, nbytes = _int8_conv_cost(self, x, y)
-        extra[0] += ops
-        extra[1] += nbytes
-        return y
-
     counter, nbytes = FlopCounterMode(display=False), _Bytes()
-    QConv.forward = forward
-    try:
-        with torch.inference_mode(), counter, nbytes:
-            fn()
-    finally:
-        QConv.forward = orig
-    flops = counter.get_total_flops() + extra[0]
-    total = nbytes.bytes + extra[1]
-    return (float(flops) or None), (float(total) or None)
+    with torch.inference_mode(), counter, nbytes:
+        fn()
+    return (float(counter.get_total_flops()) or None), (float(nbytes.bytes)
+                                                        or None)
 
 
 def device_peaks(device):

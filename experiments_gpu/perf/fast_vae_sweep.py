@@ -9,7 +9,7 @@ VAE's own fp32 output at that batch (computed in calls of at most 256
 sequences: every op is per sample, so this equals one call), with the
 shares of the card's peak FLOP/s (bf16, or int8 for int8_static) and peak
 bytes/s that the call's counted FLOPs and bytes reach
-(``bench_helpers.count_cost``). Prints a table.
+(``bench_helpers.count_cost``, printed beside them). Prints a table.
 
     python experiments_gpu/perf/fast_vae_sweep.py [B ...]   # default 64 128 256
 """
@@ -69,7 +69,8 @@ def main(argv=None):
             print(f"B={b} {tag}: first call {c:.1f}s, {t * 1000:.1f} ms -> "
                   f"{fps:,.0f} fps, self-gate {s:.5f} {gate}, {share(mfu)} "
                   f"of the card's peak ops/s, {share(bwu)} of its peak "
-                  f"bytes/s", flush=True)
+                  f"bytes/s (counted {flops or 0:.6e} FLOP, {nbytes or 0:.6e} "
+                  f"bytes)", flush=True)
             del pipe, out
             empty_cache(device)
         del ref

@@ -5,7 +5,8 @@ The pixel-unshuffle VAE with ``conv_mode="int8_static"`` (calibrated on the
 serving batch; the hand-written int8 conv and quantize kernels, the
 GroupNorm kernel) at the serving batch (B=64) and at one sequence (B=1),
 beside its fp32 and bf16 rollouts, each scored against the fast VAE's own
-fp32 output. Prints a table.
+fp32 output, with the FLOPs and bytes a serving-batch call counts
+(``bench_helpers.count_cost``). Prints a table.
 
     python experiments_gpu/perf/int8_fast_vae.py [--batch 64]
 """
@@ -21,8 +22,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
 from experiments_gpu.perf.bench_helpers import (  # noqa: E402
-    BATCH, T_OUT, add_common_args, build_pipeline, describe_device,
-    empty_cache, frame_ssim, frames_for, geometry, time_pipeline)
+    BATCH, T_OUT, add_common_args, build_pipeline, count_cost,
+    describe_device, empty_cache, frame_ssim, frames_for, geometry,
+    time_pipeline)
 from weatherforecastingtoolkit_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 
@@ -47,11 +49,13 @@ def main(argv=None):
             calib_frames=frames if mode == "int8_static" else None)
         t64, c, out = time_pipeline(pipe, fc, frames)
         t1, _, _ = time_pipeline(pipe, fc, frames[:1])
+        flops, nbytes = count_cost(lambda: pipe(fc, frames))
         outs[tag] = out
         rows.append((tag, t64, args.batch * T_OUT / t64, t1))
         print(f"{tag}: first call {c:.0f}s (total {time.perf_counter() - t0:.0f}"
               f"s), B={args.batch} {t64 * 1000:.1f} ms -> {rows[-1][2]:.0f} fps, "
-              f"B=1 {t1 * 1000:.1f} ms", flush=True)
+              f"B=1 {t1 * 1000:.1f} ms; counted at B={args.batch} "
+              f"{flops or 0:.6e} FLOP, {nbytes or 0:.6e} bytes", flush=True)
         del pipe
         empty_cache(device)
 

@@ -64,3 +64,18 @@ class DiagonalGaussianDistribution:
         return 0.5 * torch.sum(
             logtwopi + self.logvar + (sample - self.mean) ** 2 / self.var,
             dim=axes)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2) -> torch.Tensor:
+    """KL between two gaussians with broadcasting (counterpart of the JAX
+    ``distributions.py::normal_kl``). Any argument may be a Python number;
+    it takes the dtype and device of the first tensor argument."""
+    like = next((a for a in (mean1, logvar1, mean2, logvar2)
+                 if isinstance(a, torch.Tensor)), None)
+    if like is None:
+        raise TypeError("normal_kl needs at least one tensor argument")
+    mean1, logvar1, mean2, logvar2 = (
+        a if isinstance(a, torch.Tensor) else torch.tensor(a).to(like)
+        for a in (mean1, logvar1, mean2, logvar2))
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))

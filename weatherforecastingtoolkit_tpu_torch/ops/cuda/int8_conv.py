@@ -22,24 +22,29 @@ the (small) weight codes, which then are the (Cout, K) matrix the kernel
 reads by TMA, K = kh * kw * Cp. ``plan`` picks the kernel's design, tile
 width and ring depth for a conv; it is pure, so the CPU tests check it.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. The plain conv is ``F.conv2d`` in float64 on the codes
-(exact: every sum stays far below 2**53) cast to int32, then the same
-epilogue in torch; the card's kernel gives its bits. The kernels are built
-with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (keyed by a hash
-of the source) and bound with ``ctypes``. ``conv_launches`` and
-``quantize_launches`` count calls that launched each kernel.
+Dispatch: both kernels are custom ops (``torch.library.custom_op``),
+``torch.ops.wftk.int8_quantize`` and ``torch.ops.wftk.int8_conv2d``, whose
+CPU implementations are the plain versions and whose CUDA implementations
+launch the kernels or raise. Their fake implementations give the outputs'
+shapes and dtypes, so ``torch.export``, fake tensors and dispatch modes
+trace through them (``plan`` and ``build`` run only at a launch). The plain
+conv is ``F.conv2d`` in float64 on the codes (exact: every sum stays far
+below 2**53) cast to int32, then the same epilogue in torch; the card's
+kernel gives its bits. The kernels are built with ``nvcc`` for ``sm_90a``
+at first use into ``_build/`` (keyed by a hash of the source) and bound
+with ``ctypes``. ``conv_launches`` and ``quantize_launches`` count calls
+that launched each kernel.
 
-Gradients: ``int8_conv2d_nhwc`` is an autograd Function whose backward is
-the autograd of the plain version (``Int8ConvFunction``), so the int8 modes
-differentiate in scale and bias on the card as on the CPU; the codes carry
-no gradient, as in JAX.
+Gradients: the conv op's registered autograd is the autograd of the plain
+version (``_conv_backward``), so the int8 modes differentiate in scale and
+bias on the card as on the CPU; the codes carry no gradient, as in JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -181,6 +186,18 @@ def plan(cout: int, kh: int, kw: int, cp: int, out_bytes: int,
     return Plan(design, bn, plan_stages(bn, out_bytes, bk=bk, most=ring), 0)
 
 
+@functools.lru_cache(maxsize=None)
+def _geometry(h: int, w: int, cp: int, cout: int, kh: int, kw: int,
+              strides: Tuple[int, int], pad: Pad, out_bytes: int):
+    """(Ho, Wo, plan) of a launch, kept per conv shape: ``plan`` and
+    ``im2col_fits`` are pure, and a serving call repeats its shapes."""
+    ho, wo = out_size(h, w, kh, kw, strides, pad)
+    if ho < 1 or wo < 1:
+        raise ValueError(f"no output for {h}x{w} with a {kh}x{kw} kernel")
+    return ho, wo, plan(cout, kh, kw, cp, out_bytes,
+                        im2col_fits(h, w, kh, kw, strides, pad))
+
+
 # ------------------------------------------------------------ plain versions
 def quantize_nhwc_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """x (N, H, W, C) fp32/bf16, s (C,) or 0-d fp32 -> int8 codes
@@ -262,14 +279,16 @@ def quantize_nhwc_cuda(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     _on_device(s, x, "s")
     if s.numel() not in (1, c):
         raise ValueError(f"s holds {s.numel()} scales for {c} channels")
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return quantize_nhwc_cuda(x, s)
     lib = build()
     cp = padded_channels(c)
     q = torch.empty(x.shape[:-1] + (cp,), dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.int8_quantize_forward(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), s.data_ptr(),
-            int(s.numel() == c and s.ndim == 1), q.data_ptr(),
-            x.numel() // c, c, cp, torch.cuda.current_stream().cuda_stream)
+    rc = lib.int8_quantize_forward(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), s.data_ptr(),
+        int(s.numel() == c and s.ndim == 1), q.data_ptr(),
+        x.numel() // c, c, cp, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_quantize_forward failed with CUDA error {rc}")
     quantize_launches += 1
@@ -307,22 +326,22 @@ def int8_conv2d_nhwc_cuda(xq: torch.Tensor, wq: torch.Tensor,
             raise ValueError(f"scale and bias must be ({cout},), got {tuple(t.shape)}")
     if min(strides) < 1 or min(pad) < 0:
         raise ValueError(f"strides {strides} and padding {pad}")
-    ho, wo = out_size(h, w, kh, kw, strides, pad)
-    if ho < 1 or wo < 1:
-        raise ValueError(f"no output for {h}x{w} with a {kh}x{kw} kernel")
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("xq and wq must be 16-byte aligned")
+    if xq.device.index != torch.cuda.current_device():
+        with torch.cuda.device(xq.device):
+            return int8_conv2d_nhwc_cuda(xq, wq, scale, bias, strides, pad,
+                                         out_dtype)
+    bf16 = out_dtype == torch.bfloat16
+    ho, wo, how = _geometry(h, w, cp, cout, kh, kw, tuple(strides),
+                            tuple(pad), 2 if bf16 else 4)
     lib = build()
     y = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=xq.device)
-    how = plan(cout, kh, kw, cp, y.element_size(),
-               im2col_fits(h, w, kh, kw, strides, pad))
-    with torch.cuda.device(xq.device):
-        rc = lib.int8_conv2d_forward(
-            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(),
-            int(out_dtype == torch.bfloat16), n, h, w, cp, cout, kh, kw,
-            strides[0], strides[1], pad[0], pad[2], ho, wo, *how,
-            torch.cuda.current_stream().cuda_stream)
+    rc = lib.int8_conv2d_forward(
+        xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(), int(bf16),
+        n, h, w, cp, cout, kh, kw, strides[0], strides[1], pad[0], pad[2],
+        ho, wo, *how, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_conv2d_forward failed with CUDA error {rc}")
     conv_launches += 1
@@ -330,60 +349,91 @@ def int8_conv2d_nhwc_cuda(xq: torch.Tensor, wq: torch.Tensor,
 
 
 # ----------------------------------------------------------------- dispatch
+@torch.library.custom_op("wftk::int8_quantize", mutates_args=(),
+                         device_types="cpu")
+def _int8_quantize_op(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return quantize_nhwc_plain(x, s)
+
+
+@_int8_quantize_op.register_fake
+def _(x, s):
+    return x.new_empty(x.shape[:-1] + (padded_channels(x.shape[-1]),),
+                       dtype=torch.int8)
+
+
+@torch.library.custom_op("wftk::int8_conv2d", mutates_args=(),
+                         device_types="cpu")
+def _int8_conv2d_op(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                    bias: Optional[torch.Tensor], strides: Sequence[int],
+                    pad: Sequence[int], out_dtype: torch.dtype
+                    ) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return int8_conv2d_nhwc_plain(xq, wq, scale, bias, tuple(strides),
+                                  tuple(pad), out_dtype)
+
+
+@_int8_conv2d_op.register_fake
+def _(xq, wq, scale, bias, strides, pad, out_dtype):
+    n, h, w, _ = xq.shape
+    cout, kh, kw, _ = wq.shape
+    ho, wo = out_size(h, w, kh, kw, tuple(strides), tuple(pad))
+    return xq.new_empty((n, ho, wo, cout), dtype=out_dtype)
+
+
+def _conv_setup_context(ctx, inputs, output):
+    xq, wq, scale, bias, strides, pad, out_dtype = inputs
+    ctx.save_for_backward(xq, wq, scale, bias)
+    ctx.args = (list(strides), list(pad), out_dtype)
+
+
+def _conv_backward(ctx, g):
+    """The autograd of the plain version. The codes carry no gradient (they
+    are rounded), so it flows only through the epilogue, to scale and bias,
+    as ``jax.grad`` of the JAX int8 convs gives it: fp32(acc) is recomputed
+    by the op at a unit scale and no bias (the kernel on the card, exact)
+    and ``int8_epilogue`` differentiated."""
+    xq, wq, scale, bias = ctx.saved_tensors
+    strides, pad, out_dtype = ctx.args
+    acc = _conv_op(xq, wq, torch.ones_like(scale), None, strides, pad,
+                   torch.float32)
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip((scale, bias), ctx.needs_input_grad[2:4])]
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(
+            int8_epilogue(acc, *leaves, out_dtype), wanted, g))
+    return (None, None) + tuple(
+        next(grads) if t is not None and t.requires_grad else None
+        for t in leaves) + (None, None, None)
+
+
+_int8_conv2d_op.register_autograd(_conv_backward,
+                                  setup_context=_conv_setup_context)
+
+# The CUDA implementations are the kernels' wrappers, registered at the
+# dispatcher's CUDA key as they are: ``register_kernel``'s Python wrapper
+# (an aliasing check and a dynamo guard) would add its host time to every
+# launch. The ops' overloads are looked up once.
+_CUDA = torch.library.Library("wftk", "FRAGMENT")
+_CUDA.impl("int8_quantize", quantize_nhwc_cuda, "CUDA")
+_CUDA.impl("int8_conv2d", int8_conv2d_nhwc_cuda, "CUDA")
+_quantize_op = torch.ops.wftk.int8_quantize.default
+_conv_op = torch.ops.wftk.int8_conv2d.default
+
+
 def quantize_nhwc(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """int8 codes of x (N, H, W, C): the kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return quantize_nhwc_plain(x, s)
-    return quantize_nhwc_cuda(x, s)
-
-
-class Int8ConvFunction(torch.autograd.Function):
-    """Forward: the conv kernel with its epilogue (the plain version for CPU
-    tensors). Backward: the autograd of the plain version. The codes carry
-    no gradient (they are rounded), so the plain version's gradient flows
-    only through its epilogue, to scale and bias, as ``jax.grad`` of the JAX
-    int8 convs gives it; the backward recomputes fp32(acc) (the kernel with
-    a unit scale and no bias on the card, exact) and differentiates
-    ``int8_epilogue``."""
-
-    @staticmethod
-    def forward(ctx, xq, wq, scale, bias, strides, pad, out_dtype):
-        ctx.save_for_backward(xq, wq, scale, bias)
-        ctx.args = (strides, pad, out_dtype)
-        if xq.device.type == "cpu":
-            return int8_conv2d_nhwc_plain(xq, wq, scale, bias, strides, pad,
-                                          out_dtype)
-        return int8_conv2d_nhwc_cuda(xq, wq, scale, bias, strides, pad,
-                                     out_dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        xq, wq, scale, bias = ctx.saved_tensors
-        strides, pad, out_dtype = ctx.args
-        if xq.device.type == "cpu":
-            acc = int8_accumulate_plain(xq, wq, strides, pad)
-        else:
-            acc = int8_conv2d_nhwc_cuda(
-                xq, wq, torch.ones_like(scale), None, strides, pad,
-                torch.float32)
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(need)
-                      for t, need in zip((scale, bias),
-                                         ctx.needs_input_grad[2:4])]
-            wanted = [t for t in leaves if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(
-                int8_epilogue(acc, *leaves, out_dtype), wanted, g))
-        return (None, None) + tuple(
-            next(grads) if t is not None and t.requires_grad else None
-            for t in leaves) + (None, None, None)
+    """int8 codes of x (N, H, W, C) through the op ``wftk::int8_quantize``:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor. The
+    codes carry no gradient."""
+    return _quantize_op(*(t.detach() if t.requires_grad else t
+                          for t in (x, s)))
 
 
 def int8_conv2d_nhwc(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                      bias: Optional[torch.Tensor], strides: Tuple[int, int],
                      pad: Pad, out_dtype: torch.dtype) -> torch.Tensor:
-    """The int8 conv with its epilogue: the kernel on CUDA tensors, the
-    plain version on CPU tensors. pad is (top, bottom, left, right).
-    Differentiable in scale and bias (``Int8ConvFunction``)."""
-    return Int8ConvFunction.apply(xq, wq, scale, bias, strides, pad,
-                                  out_dtype)
+    """The int8 conv with its epilogue through the op ``wftk::int8_conv2d``:
+    the kernel on CUDA tensors, the plain version on CPU tensors. pad is
+    (top, bottom, left, right). Differentiable in scale and bias."""
+    return _conv_op(xq, wq, scale, bias, strides, pad, out_dtype)

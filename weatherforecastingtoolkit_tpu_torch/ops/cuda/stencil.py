@@ -3,7 +3,9 @@
 Replaces the TPU kernel
 ``weatherforecastingtoolkit_tpu/ops/pallas/stencil.py::_stencil_kernel``
 (launched by ``advection_diffusion_loss(use_pallas=True)``). The plain
-version, the dispatch and the autograd wrapper live in ``ops/stencil.py``.
+version and the custom op ``wftk::advection_stencil``, whose CUDA
+implementation is ``advection_stencil_cuda_scalars``, live in
+``ops/stencil.py``.
 
 On the H100 the kernel is bound by device-memory bytes (x read once, 14 flops
 per interior element and pair) and, at the training batch, by launch latency.

@@ -30,12 +30,16 @@ happens here), and every round is half to even.
 
 from __future__ import annotations
 
+import contextlib
 import fnmatch
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
+from torch._subclasses.functional_tensor import FunctionalTensor
+from torch.utils._python_dispatch import _disable_current_modes
 
 from .cuda import int8_conv as _kernels
 
@@ -162,6 +166,13 @@ def _conv_int8(x: torch.Tensor, operands, strides: Tuple[int, int],
     else:
         xq = _kernels.quantize_nhwc(x, s_a)
     return _kernels.int8_conv2d_nhwc(xq, wq, scale, b, strides, pad, x.dtype)
+
+
+def _traced(t: torch.Tensor) -> bool:
+    """Whether t is a tensor of a trace (fake or functional), whose
+    ``data_ptr`` and version say nothing of the parameter it stands for."""
+    return (is_fake(t) or isinstance(t, FunctionalTensor)
+            or torch._is_functional_tensor(t))
 
 
 def _hwio(kernel: torch.Tensor) -> torch.Tensor:
@@ -297,11 +308,15 @@ class QConv(nn.Module):
     ``.data`` bypass the version counter and are not seen. Inference tensors
     (parameters made under ``torch.inference_mode``) have no version
     counter, so such a conv builds its weight side on every call. The cache
-    is no buffer: ``state_dict`` is the same in every mode. Gradients are
-    JAX's: while autograd records, the scale and the bias are rebuilt from
-    ``weight`` and ``bias`` (the codes stay cached: rounded, they carry no
-    gradient), so weight, bias and, in ``int8``, x (through its scale)
-    get the gradients ``jax.grad`` of the JAX convs gives.
+    is no buffer: ``state_dict`` is the same in every mode. It holds real
+    tensors only: under a trace (``torch.export``) real parameters get their
+    weight side built outside the trace and cached, so the exported program
+    holds it as constants whether or not an eager call came first, and
+    traced (fake) parameters get it built inside the trace, uncached.
+    Gradients are JAX's: while autograd records, the scale and the bias are
+    rebuilt from ``weight`` and ``bias`` (the codes stay cached: rounded,
+    they carry no gradient), so weight, bias and, in ``int8``, x (through
+    its scale) get the gradients ``jax.grad`` of the JAX convs gives.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -352,19 +367,32 @@ class QConv(nn.Module):
         records and weight or bias requires grad, the scale and the fp32
         bias are rebuilt from them with the same code (the same bits), so
         that gradients reach weight and bias as ``jax.grad`` gives them; the
-        cached codes carry no gradient either way."""
+        cached codes carry no gradient either way.
+
+        Under a trace (``torch.export``, fake tensors, a dispatch mode) the
+        cache holds real tensors only: real parameters get their weight
+        side built outside the trace (every dispatch mode off), so it enters
+        the traced program as constants whether or not an eager call came
+        first; traced parameters (fake or functional) get it built inside
+        the trace, and nothing is kept."""
         absmax = self.act_absmax if self.resolved == "int8_static" else None
         tensors = [t for t in (self.weight, self.bias, absmax)
                    if t is not None]
+        traced = any(_traced(t) for t in tensors)
         key = operands = None
-        if not any(t.is_inference() for t in tensors):
+        if not traced and not any(t.is_inference() for t in tensors):
             key = (self.resolved, device) + tuple(
                 (t.data_ptr(), t.dtype, t.device, t._version)
                 for t in tensors)
             if self._int8_cache is not None and self._int8_cache[0] == key:
                 operands = self._int8_cache[1]
         if operands is None:
-            with torch.no_grad():
+            # grad mode is switched only where it is on: a switch made
+            # under torch.export enters the program and splits it
+            with (contextlib.nullcontext() if traced
+                  else _disable_current_modes()), (
+                      torch.no_grad() if torch.is_grad_enabled()
+                      else contextlib.nullcontext()):
                 operands = _int8_operands(self.weight.permute(0, 2, 3, 1),
                                           self.bias, absmax, device)
             if key is not None:

@@ -7,16 +7,20 @@ weatherforecastingtoolkit_tpu/ops/pallas/stencil.py).
 over the interior of every consecutive frame pair of x (B, T, C, H, W), with
 central differences and the 5-point Laplacian.
 
-Dispatch: a CPU tensor takes ``advection_diffusion_residual_reference``; a
-CUDA tensor launches the Hopper kernel (``ops/cuda/stencil.py``) or raises.
-Nothing falls back quietly. Both take fp32 or bf16 x. With bf16 x the
-differences dt, dh, dw and lap are bf16 (each operation rounded, left to
-right as written) and, as jnp promotes them with the TPU kernel's fp32 u, v
-and kappa, the residual, its square and the mean are fp32.
+Dispatch: the kernel is the custom op ``torch.ops.wftk.advection_stencil``
+(``torch.library.custom_op``): its CPU implementation is the plain version,
+its CUDA implementation launches the Hopper kernel (``ops/cuda/stencil.py``)
+or raises, and its fake implementation (a 0-d fp32 tensor) lets
+``torch.export`` and fake tensors trace it. ``advection_diffusion_loss``
+gives a CPU tensor to the plain version directly. Nothing falls back
+quietly. Both take fp32 or bf16 x. With bf16 x the differences dt, dh, dw
+and lap are bf16 (each operation rounded, left to right as written) and, as
+jnp promotes them with the TPU kernel's fp32 u, v and kappa, the residual,
+its square and the mean are fp32.
 
-``advection_diffusion_prior`` is differentiable in x, u, v and kappa: its
-forward is the kernel, its backward the autograd of the plain version,
-recomputed, as the JAX ``_prior_bwd`` differentiates the XLA version.
+``advection_diffusion_prior`` is differentiable in x, u, v and kappa: the
+op's registered autograd is the autograd of the plain version, recomputed,
+as the JAX ``_prior_bwd`` differentiates the XLA version.
 Pass u, v and kappa as fp32 tensors on x's device to keep the training step
 free of host syncs: the kernel reads them where they lie, and a call is one
 kernel launch. A Python float is copied to the device on every call.
@@ -62,9 +66,49 @@ def _frames_reference(x: torch.Tensor, u: Scalar, v: Scalar,
         x.transpose(1, 2).reshape(b * c, t, h, w), u, v, kappa)
 
 
-def advection_diffusion_loss(x: torch.Tensor, u: Scalar, v: Scalar,
-                             kappa: Scalar) -> torch.Tensor:
-    """Mean squared advection-diffusion residual over (B, T, C, H, W)."""
+@torch.library.custom_op("wftk::advection_stencil", mutates_args=(),
+                         device_types="cpu")
+def _advection_stencil_op(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                          kappa: torch.Tensor) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return _frames_reference(x, u, v, kappa)
+
+
+@_advection_stencil_op.register_fake
+def _(x, u, v, kappa):
+    return x.new_empty((), dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    """The autograd of the plain version, recomputed under
+    ``enable_grad``, as the JAX ``_prior_bwd`` differentiates the XLA
+    version."""
+    saved = ctx.saved_tensors
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(_frames_reference(*leaves), wanted,
+                                         g))
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+_advection_stencil_op.register_autograd(_backward,
+                                        setup_context=_setup_context)
+
+# The CUDA implementation is the kernel's wrapper, registered at the
+# dispatcher's CUDA key as it is (``register_kernel``'s Python wrapper would
+# add its host time to every launch); the overload is looked up once.
+_CUDA = torch.library.Library("wftk", "FRAGMENT")
+_CUDA.impl("advection_stencil", _cuda.advection_stencil_cuda_scalars, "CUDA")
+_stencil_op = torch.ops.wftk.advection_stencil.default
+
+
+def _check(x: torch.Tensor) -> None:
     if x.ndim != 5:
         raise ValueError(f"expected (B, T, C, H, W), got {tuple(x.shape)}")
     if x.shape[1] < 2:
@@ -72,38 +116,27 @@ def advection_diffusion_loss(x: torch.Tensor, u: Scalar, v: Scalar,
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the advection-diffusion prior takes fp32 or bf16, "
                         f"got {x.dtype}")
+
+
+def _coefficients(x: torch.Tensor, u: Scalar, v: Scalar, kappa: Scalar):
+    return tuple(torch.as_tensor(s, dtype=torch.float32, device=x.device)
+                 for s in (u, v, kappa))
+
+
+def advection_diffusion_loss(x: torch.Tensor, u: Scalar, v: Scalar,
+                             kappa: Scalar) -> torch.Tensor:
+    """Mean squared advection-diffusion residual over (B, T, C, H, W)."""
+    _check(x)
     if x.device.type == "cpu":
         return _frames_reference(x, u, v, kappa)
-    u, v, kappa = (torch.as_tensor(s, dtype=torch.float32, device=x.device)
-                   for s in (u, v, kappa))
-    return _cuda.advection_stencil_cuda_scalars(x, u, v, kappa)
-
-
-class AdvectionDiffusionPrior(torch.autograd.Function):
-    """Forward: the kernel (plain version for a CPU tensor). Backward: the
-    autograd of the plain version, recomputed under ``enable_grad``."""
-
-    @staticmethod
-    def forward(ctx, x, u, v, kappa):
-        ctx.save_for_backward(x, u, v, kappa)
-        return advection_diffusion_loss(x, u, v, kappa)
-
-    @staticmethod
-    def backward(ctx, g):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(need)
-                      for t, need in zip(saved, ctx.needs_input_grad)]
-            wanted = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad(_frames_reference(*leaves),
-                                             wanted, g))
-        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+    return _stencil_op(x, *_coefficients(x, u, v, kappa))
 
 
 def advection_diffusion_prior(x: torch.Tensor, u: Scalar, v: Scalar,
                               kappa: Scalar) -> torch.Tensor:
-    """Differentiable physics prior: the kernel forward, the plain
-    version's autograd backward. Gradients reach x, u, v and kappa."""
-    u, v, kappa = (torch.as_tensor(s, dtype=torch.float32, device=x.device)
-                   for s in (u, v, kappa))
-    return AdvectionDiffusionPrior.apply(x, u, v, kappa)
+    """Differentiable physics prior through the op
+    ``wftk::advection_stencil``: the kernel forward (the plain version on
+    the CPU), the plain version's autograd backward. Gradients reach x, u,
+    v and kappa."""
+    _check(x)
+    return _stencil_op(x, *_coefficients(x, u, v, kappa))

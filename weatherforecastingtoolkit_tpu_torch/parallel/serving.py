@@ -6,9 +6,13 @@ both scale out with no collective inside the model: each rank runs its rows
 (or its members) through the single-card program and the results are
 gathered. ``export_pipeline`` writes the pipeline as a ``torch.export``
 program with a symbolic batch, which ``load_pipeline`` serves without the
-model code (the GroupNorm kernel is the custom op
-``torch.ops.wftk.group_norm_silu``, registered when the port's
-``ops/cuda/groupnorm.py`` is imported).
+model code. Each hand-written kernel is a custom op the program calls:
+``torch.ops.wftk.group_norm_silu`` (``ops/cuda/groupnorm.py``),
+``wftk::int8_quantize`` and ``wftk::int8_conv2d`` (``ops/cuda/int8_conv.py``)
+and ``wftk::advection_stencil`` (``ops/stencil.py``), registered when those
+modules are imported. So the int8 pipelines export as the bf16 and fp32
+ones do: the weight codes of each int8 conv enter the program as constants
+(``ops/quant.py::QConv`` builds them outside the trace).
 """
 
 from __future__ import annotations
@@ -99,10 +103,10 @@ class _Exported(nn.Module):
 
 
 def export_pipeline(pipeline: Callable, params, example_frames, path: str,
-                    batch_symbolic: bool = True) -> None:
+                    batch_symbolic: bool = True) -> torch.export.ExportedProgram:
     """Write pipeline(params, frames) to ``path`` as a ``torch.export``
     program (``torch.export.save``), loadable and servable without the
-    model code (``load_pipeline``).
+    model code (``load_pipeline``); returns the program.
 
     The pipelines run under ``torch.inference_mode``, which export does not
     trace: the undecorated function is exported (``__wrapped__``), and the
@@ -117,12 +121,16 @@ def export_pipeline(pipeline: Callable, params, example_frames, path: str,
         program = torch.export.export(_Exported(fn, params), (frames,),
                                       dynamic_shapes=dynamic)
     torch.export.save(program, path)
+    return program
 
 
 def load_pipeline(path: str) -> Callable:
     """Load an ``export_pipeline`` program; returns call(frames) ->
     predictions (the forecaster's weights are inside the program)."""
-    from ..ops.cuda import groupnorm  # noqa: F401 — registers the custom op
+    # register the custom ops a program may call: wftk::group_norm_silu,
+    # wftk::int8_quantize, wftk::int8_conv2d and wftk::advection_stencil
+    from ..ops import stencil  # noqa: F401
+    from ..ops.cuda import groupnorm, int8_conv  # noqa: F401
 
     module = torch.export.load(path).module()
 
