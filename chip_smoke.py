@@ -581,12 +581,22 @@ def time_gn_calls(calls, title):
     return tot, err
 
 
+def card_events(prof):
+    """The profiler's averaged operations that ran on the card (kernels,
+    copies and fills), without the device shadows of user spans
+    (``record_function``, such as the rollout's ``wftk.*``), which cover
+    operations and are none themselves."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
 def profile_step(step, n):
     """torch.profiler over n steps: device kernel ms per step, the wall ms
     per step (profiler on), kernels launched per step, and the five kernels
     with the most device time. Fails when it recorded no kernel."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -597,8 +607,7 @@ def profile_step(step, n):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = card_events(prof)
     if not kernels:
         raise AssertionError("torch.profiler recorded no kernel on the card")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
@@ -613,7 +622,6 @@ def device_ops(fn):
     fn() call after a first one (kernels, copies and fills alike), from
     torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()                         # one-time set-up (a ticket pool) outside
@@ -622,8 +630,7 @@ def device_ops(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [(e.key, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    return [(e.key, e.count) for e in card_events(prof)]
 
 
 def one_kernel(name, fn):
@@ -2113,7 +2120,6 @@ def device_ms_by_op(fn, ops):
     op of ``ops`` (the kernels it launches itself), from torch.profiler,
     and the call's total kernel ms."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2123,8 +2129,7 @@ def device_ms_by_op(fn, ops):
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    total = sum(e.self_device_time_total for e in events
-                if e.device_type == DeviceType.CUDA) / 1e3
+    total = sum(e.self_device_time_total for e in card_events(prof)) / 1e3
     return {e.key: e.self_device_time_total / 1e3 for e in events
             if e.key in ops}, total
 
@@ -2864,8 +2869,6 @@ class StepProbe:
         """(ms a step without the profiler, ms a step and the device's busy
         share under it, kernels a step, host ms between steps, kernel ms a
         step, the four kernels with the most device time)."""
-        from torch.autograd import DeviceType
-
         if self.steps != self.n_steps:
             raise AssertionError(f"{self.steps} steps, expected "
                                  f"{self.n_steps}")
@@ -2873,8 +2876,7 @@ class StepProbe:
             (self.t1 - self.t0)
         n = self.n_steps - self.t1
         wall = (self.marks["end"] - self.marks["profiled"]) / n
-        kernels = [e for e in self.prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+        kernels = card_events(self.prof)
         if not kernels:
             raise AssertionError("torch.profiler recorded no kernel")
         busy = sum(e.self_device_time_total for e in kernels) / 1e6 / n

@@ -1,0 +1,12 @@
+"""caller_wait_ms.<mix kind>: milliseconds a call with nothing on the card,
+with no port span open: the caller's own loop (its synchronise, the
+copies of the answers kept for the check). Each stretch between the
+window's operations goes to the innermost port span open on the host at
+its middle (``port_spans.py``); summed over the window and divided by
+its calls. Nothing when the port logs no spans."""
+
+from nowcast_bench import port_spans
+
+
+def read(run):
+    return port_spans.wait_ms(run, "caller")

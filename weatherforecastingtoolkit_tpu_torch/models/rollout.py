@@ -12,6 +12,16 @@ out as a batch dimension: N members of B sequences go through one
 forecast and one decode of N*B sequences, with their noise drawn from an
 explicit ``torch.Generator``. ``make_eval_fn``, ``make_ensemble_eval_fn``,
 ``calibrate_noise_std`` and ``evaluate_vs_persistence`` feed the metrics.
+
+Each entry point is a call span (``training/profiling.py::span``:
+``wftk.pipeline``, ``wftk.init``, ``wftk.step``, ``wftk.ensemble``) around
+the spans of its layers: ``wftk.input`` (the copy and dequantise, counting
+the ``bytes`` taken from host memory to a CUDA device), ``wftk.encode``,
+``wftk.window`` (the tick's latent window), ``wftk.forecast`` (the anchor,
+the forecaster and the add-back) and ``wftk.decode``. They sit around the
+calls of the callables the caller hands in, never inside them, so a
+caller's own spans there stay innermost. Spans are on only while a
+``torch.profiler`` session is open.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..training.profiling import span
 from ..utils.device import DeviceLike, resolve_device
 
 
@@ -37,13 +48,25 @@ def _unfold(x: torch.Tensor, b: int, t: int) -> torch.Tensor:
     return x.reshape((b, t) + x.shape[1:])
 
 
+def _host_bytes(frames, device: torch.device) -> int:
+    """Bytes ``to_input`` takes from host memory (a numpy array or a CPU
+    tensor) to a CUDA ``device``: 0 when the frames stay on the host or are
+    already on a CUDA device."""
+    if device.type != "cuda" or (isinstance(frames, torch.Tensor) and frames.is_cuda):
+        return 0
+    return frames.nbytes
+
+
 def _make_input(device: torch.device, dequantize: bool) -> Callable:
     """Frames (numpy or tensor) -> a tensor on `device`, uint8 -> [0, 1]."""
 
     def to_input(frames) -> torch.Tensor:
-        x = torch.as_tensor(frames, device=device)
-        if dequantize and x.dtype == torch.uint8:
-            x = x.to(torch.float32) * (1.0 / 255.0)
+        with span("wftk.input") as on:
+            if on is not None:
+                on.counts["bytes"] = _host_bytes(frames, device)
+            x = torch.as_tensor(frames, device=device)
+            if dequantize and x.dtype == torch.uint8:
+                x = x.to(torch.float32) * (1.0 / 255.0)
         return x
 
     return to_input
@@ -57,20 +80,22 @@ def _make_forecast_decode(decode_apply: Callable, forecaster_apply: Callable,
 
     def forecast_decode(fc_params, z, latent_shape):
         b = z.shape[0]
-        anchor = z[:, -1:] if residual_anchor else torch.zeros_like(z[:, -1:])
-        zin = z - anchor
-        if not autoregressive:
-            zpred = forecaster_apply(fc_params, zin)          # (B, T_out, D)
-        else:
-            window, steps = zin, []
-            for _ in range(pred_frames):
-                nxt = forecaster_apply(fc_params, window)[:, :1]  # one step
-                window = torch.cat([window[:, 1:], nxt], dim=1)
-                steps.append(nxt)
-            zpred = torch.cat(steps, dim=1)                   # (B, T_out, D)
-        zpred = zpred + anchor
-        frames = decode_apply(zpred.reshape((b * pred_frames,) + latent_shape))
-        return _unfold(frames, b, pred_frames)
+        with span("wftk.forecast"):
+            anchor = z[:, -1:] if residual_anchor else torch.zeros_like(z[:, -1:])
+            zin = z - anchor
+            if not autoregressive:
+                zpred = forecaster_apply(fc_params, zin)      # (B, T_out, D)
+            else:
+                window, steps = zin, []
+                for _ in range(pred_frames):
+                    nxt = forecaster_apply(fc_params, window)[:, :1]  # one step
+                    window = torch.cat([window[:, 1:], nxt], dim=1)
+                    steps.append(nxt)
+                zpred = torch.cat(steps, dim=1)               # (B, T_out, D)
+            zpred = zpred + anchor
+        with span("wftk.decode"):
+            frames = decode_apply(zpred.reshape((b * pred_frames,) + latent_shape))
+            return _unfold(frames, b, pred_frames)
 
     return forecast_decode
 
@@ -101,12 +126,14 @@ def make_forecast_pipeline(
 
     @torch.inference_mode()
     def pipeline(fc_params, frames_in):
-        x = to_input(frames_in)
-        b = x.shape[0]
-        z = encode_apply(_fold(x))                    # (B*T_in, ...)
-        latent_shape = tuple(z.shape[1:])
-        z = z.reshape(b, input_frames, -1)            # NCHW flatten order
-        return forecast_decode(fc_params, z, latent_shape)
+        with span("wftk.pipeline"):
+            x = to_input(frames_in)
+            b = x.shape[0]
+            with span("wftk.encode"):
+                z = encode_apply(_fold(x))            # (B*T_in, ...)
+                latent_shape = tuple(z.shape[1:])
+                z = z.reshape(b, input_frames, -1)    # NCHW flatten order
+            return forecast_decode(fc_params, z, latent_shape)
 
     return pipeline
 
@@ -141,15 +168,20 @@ def make_streaming_forecaster(
 
     @torch.inference_mode()
     def init(frames_in):
-        x = to_input(frames_in)
-        return encode_apply(_fold(x)).reshape(x.shape[0], input_frames, -1)
+        with span("wftk.init"):
+            x = to_input(frames_in)
+            with span("wftk.encode"):
+                return encode_apply(_fold(x)).reshape(x.shape[0], input_frames, -1)
 
     @torch.inference_mode()
     def step(fc_params, z_window, frame):
-        x = to_input(frame)
-        z_new = encode_apply(x).reshape(x.shape[0], 1, -1)
-        z_window = torch.cat([z_window[:, 1:], z_new], dim=1)
-        return z_window, forecast_decode(fc_params, z_window, latent_shape)
+        with span("wftk.step"):
+            x = to_input(frame)
+            with span("wftk.encode"):
+                z_new = encode_apply(x).reshape(x.shape[0], 1, -1)
+            with span("wftk.window"):
+                z_window = torch.cat([z_window[:, 1:], z_new], dim=1)
+            return z_window, forecast_decode(fc_params, z_window, latent_shape)
 
     return init, step
 
@@ -192,24 +224,26 @@ def make_ensemble_pipeline(
     @torch.inference_mode()
     def ensemble(fc_params, frames_in, generator: torch.Generator,
                  noise_std: float):
-        x = to_input(frames_in)
-        b, n = x.shape[0], n_members
-        flat = _fold(x)                               # (B*T_in, C, H, W)
-        if encode_sample_apply is None:
-            z = encode_apply(flat)
-            latent_shape = tuple(z.shape[1:])
-            z = z.reshape(1, b, input_frames, -1).expand(n, -1, -1, -1)
-        else:
-            z = encode_sample_apply(generator, flat.repeat(
-                (n,) + (1,) * (flat.ndim - 1)))       # (N*B*T_in, ...)
-            latent_shape = tuple(z.shape[1:])
-            z = z.reshape(n, b, input_frames, -1)
-        eps = torch.randn(z.shape, generator=generator,
-                          device=generator.device)
-        zn = z + noise_std * eps.to(z.device)
-        out = forecast_decode(fc_params, zn.reshape(n * b, input_frames, -1),
-                              latent_shape)           # (N*B, T_out, C, H, W)
-        return out.reshape((n, b) + tuple(out.shape[1:])).transpose(0, 1)
+        with span("wftk.ensemble"):
+            x = to_input(frames_in)
+            b, n = x.shape[0], n_members
+            flat = _fold(x)                           # (B*T_in, C, H, W)
+            with span("wftk.encode"):                 # the members' latents
+                if encode_sample_apply is None:
+                    z = encode_apply(flat)
+                    latent_shape = tuple(z.shape[1:])
+                    z = z.reshape(1, b, input_frames, -1).expand(n, -1, -1, -1)
+                else:
+                    z = encode_sample_apply(generator, flat.repeat(
+                        (n,) + (1,) * (flat.ndim - 1)))   # (N*B*T_in, ...)
+                    latent_shape = tuple(z.shape[1:])
+                    z = z.reshape(n, b, input_frames, -1)
+                eps = torch.randn(z.shape, generator=generator,
+                                  device=generator.device)
+                zn = z + noise_std * eps.to(z.device)
+            out = forecast_decode(fc_params, zn.reshape(n * b, input_frames, -1),
+                                  latent_shape)       # (N*B, T_out, C, H, W)
+            return out.reshape((n, b) + tuple(out.shape[1:])).transpose(0, 1)
 
     return ensemble
 
