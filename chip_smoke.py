@@ -7,7 +7,7 @@ NVIDIA GPU and check it.
 Phases (any failure exits non-zero; no phase's failure is caught):
   1. the card (nvidia-smi's name and power limit line, printed again before
      the {"kernels": ...} line), torch/CUDA versions, and the nvcc builds of
-     the three kernel sources from csrc/ (in parallel, timed; ptxas's
+     the four kernel sources from csrc/ (in parallel, timed; ptxas's
      registers, spills and shared memory), and the count of GMMA (wgmma)
      instructions in the int8 conv library's SASS, which must be above 0;
   2. the GroupNorm kernel against its plain PyTorch version at every
@@ -15,18 +15,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      channels_last, fp32 and bf16, fp32 and bf16 scale/bias, SiLU on/off,
      eps 1e-6/1e-5, and at the edges of its plan (C=128/256 at 128x128,
      N=1 and 3, a ragged 130x97, C not a multiple of the 16-byte vector);
-     the same bits on two runs everywhere;
+     the same bits on two runs everywhere; 2b. the conv epilogue kernel
+     against its plain version (the same bits) at the edges of its plan
+     (C = 1, 3, 16, 24, 64, 128; a tail after the last whole vector; h not
+     16-byte aligned), fp32/bf16/fp16/fp64, channels_last and NCHW, with
+     and without the residual and each bias, f = 1 and 0.7, and the bias
+     alone equal to ATen's h + b;
   3. the main path at full width: the reference-shape VAE
      (64,128,256,512,512) + DLinear(13->12) at batch 64 on synthetic VIL
      frames, fp32 and bf16; median time, frames/s, bf16-vs-fp32 SSIM
-     (> SSIM_GATE), and exactly 42 kernel launches per call;
+     (> SSIM_GATE), and exactly 42 kernel launches per call, and the conv
+     epilogue's launches (one a call of the op);
   4. the other variants in bf16: the fast VAE (pixel_unshuffle=4) at batch
      256, the autoregressive rollout at batch 64, the streaming tick at
      batch 1 (init once, then steps), each with its launch count;
   5. the serving path on two sequences, card against CPU (fp32 outputs,
      bf16-vs-fp32 SSIM); the kernel's time (in a CUDA graph, and with the
      wrapper's host time), plain time, library time and bound at every
-     GroupNorm call shape of one bf16 pipeline call; then, in a fresh
+     GroupNorm call shape of one bf16 pipeline call, and the same for the
+     conv epilogue at its call shapes (library: ATen's unfolded adds) with
+     the host time of a call through its op beside the GroupNorm op's
+     (chip_smoke.py --epilogue runs phase 2b and this alone); then, in a fresh
      process (chip_smoke.py --profile, since torch.profiler sessions came
      back empty late in this one), one GroupNormSiLU forward (fp32/bf16 x
      and parameters) and one stencil call = one operation on the card (by
@@ -324,6 +333,13 @@ STENCIL_REPLACES = "weatherforecastingtoolkit_tpu/ops/pallas/stencil.py:62"
 INT8_SOURCE = "weatherforecastingtoolkit_tpu_torch/csrc/int8_conv.cu"
 INT8_CONV_REPLACES = "weatherforecastingtoolkit_tpu/ops/quant.py:161"
 QUANTIZE_REPLACES = "weatherforecastingtoolkit_tpu/ops/quant.py:151"
+# The conv epilogue replaces no TPU kernel (XLA fuses a conv's bias add)
+EPILOGUE_SOURCE = "weatherforecastingtoolkit_tpu_torch/csrc/conv_epilogue.cu"
+# (N, C, H, W) edges of the epilogue: C = 1 and 16 (the VAEs' conv_out), an
+# odd C (a channel period of several vectors), a tail after the last whole
+# vector, C not a multiple of any vector, a plane not a multiple of one
+EPILOGUE_EDGES = [(3, 1, 17, 13), (2, 16, 32, 32), (2, 24, 9, 11),
+                  (1, 3, 5, 7), (2, 128, 8, 8), (4, 64, 128, 128)]
 INT8_OPS_PER_S = 1979e12       # H100 SXM data sheet, dense int8
 # bench.py:52, the JAX bench's fast-VAE mixed spec
 INT8_MIXED_SPEC = (("encoder/mid_block*", "int8_static"), ("*", "native"))
@@ -581,6 +597,228 @@ def time_gn_calls(calls, title):
     return tot, err
 
 
+def epilogue_inputs(shape, dtype, channels_last, seed, offset=0):
+    """h, r, b_h and b_r of an epilogue call of `shape`; h at `offset`
+    elements into its storage (1: not 16-byte aligned)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, c, hh, ww = shape
+    base = torch.randn(n * c * hh * ww + offset, generator=g,
+                       device="cuda").to(dtype)
+    h = (base[offset:].view(n, hh, ww, c).permute(0, 3, 1, 2) if channels_last
+         else base[offset:].view(shape))
+    r = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    if channels_last:
+        r = r.contiguous(memory_format=torch.channels_last)
+    b = torch.randn((2, c), generator=g, device="cuda").to(dtype)
+    return h, r, b[0], b[1]
+
+
+def epilogue_check():
+    """Phase 2b: the conv epilogue kernel against its plain version, the
+    same bits (the same fp32 operations in the same order; fp64 in fp64),
+    at the edges of its plan, fp32/bf16/fp16/fp64, channels_last and NCHW,
+    aligned and not, with and without the residual and each bias, f = 1
+    and not; the bias alone is ATen's h + b bit for bit. Returns the cases
+    run."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    cases = 0
+    for i, shape in enumerate(EPILOGUE_EDGES):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                      torch.float64):
+            for cl in (True, False):
+                for offset in (0, 1):
+                    h, r, b1, b2 = epilogue_inputs(shape, dtype, cl, i,
+                                                   offset)
+                    for args in ((b1, None, None), (b1, r, None), (b1, r, b2),
+                                 (None, r, b2), (None, None, None)):
+                        for f in (1.0, 0.7):
+                            got = ce.conv_epilogue_cuda(h, *args, f)
+                            want = ce.conv_epilogue_reference(h, *args, f)
+                            name = (f"{shape} {dtype} cl={cl} offset={offset}"
+                                    f" {[a is not None for a in args]} f={f}")
+                            if not torch.equal(got, want):
+                                err = float((got.double() - want.double()
+                                             ).abs().max())
+                                raise AssertionError(
+                                    f"epilogue != plain at {name}: {err}")
+                            if got.is_contiguous(
+                                    memory_format=torch.channels_last) != cl \
+                                    and shape[1] > 1:
+                                raise AssertionError(f"layout at {name}")
+                            cases += 1
+                    aten = h + b1[:, None, None]
+                    if not torch.equal(ce.conv_epilogue_cuda(
+                            h, b1, None, None, 1.0), aten):
+                        raise AssertionError(f"bias != ATen's h + b at "
+                                             f"{shape} {dtype} cl={cl}")
+    torch.cuda.synchronize()
+    return cases
+
+
+def record_epilogue_calls(fn):
+    """wftk::conv_epilogue calls of one fn() call (a warm-up), counted by
+    (shape, dtype, channels_last, residual, second bias, f)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = collections.Counter()
+    op = torch.ops.wftk.conv_epilogue.default
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is op:
+                h, _, r, b_r, f = args
+                calls[(tuple(h.shape), h.dtype, not h.is_contiguous(),
+                       r is not None, b_r is not None, f)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return calls
+
+
+def epilogue_bound(h, residual):
+    """Least time of one epilogue call: read h (and r) once, write y once,
+    at 3.35 TB/s (a few adds an element: bytes bound it). Returns ms."""
+    return 1e3 * (3 if residual else 2) * h.numel() * h.element_size() \
+        / HBM_BYTES_PER_S
+
+
+def time_epilogue_calls(calls, title):
+    """The epilogue kernel at each call shape of `calls` (from
+    ``record_epilogue_calls``): the plain version's bits, its device time in
+    a CUDA graph and with the wrapper's host time (events), the plain
+    version's time, ATen's unfolded arithmetic (h + b, then + (r + b_r),
+    then / f: what the port ran before the epilogue) and the bound; returns
+    the totals weighted by the counts."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    log(f"{title}: per epilogue call shape, device ms: kernel in a CUDA "
+        f"graph / kernel with the wrapper (events) / plain / ATen's unfolded "
+        f"adds / bound")
+    tot = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0)
+    for i, ((shape, dtype, cl, res, two, f), count) in enumerate(
+            sorted(calls.items(), key=lambda kv: -np.prod(kv[0][0]))):
+        h, r, b1, b2 = epilogue_inputs(shape, dtype, cl, seed=2000 + i)
+        args = (h, b1, r if res else None, b2 if two else None, f)
+
+        def kernel():
+            return ce.conv_epilogue_cuda(*args)
+
+        def library():
+            y = h + b1[:, None, None]
+            if res:
+                y = y + (r + b2[:, None, None] if two else r)
+            return y if f == 1.0 else y / f
+
+        if not torch.equal(kernel(), ce.conv_epilogue_reference(*args)):
+            raise AssertionError(f"epilogue != plain at {shape}")
+        ms = graph_ms(kernel, 20)
+        call_ms = event_ms(kernel, 20)
+        plain = event_ms(lambda: ce.conv_epilogue_reference(*args), 3)
+        lib = graph_ms(library, 20)
+        bound = epilogue_bound(h, res)
+        log(f"  {count:2d} x N={shape[0]} C={shape[1]} {shape[2]}x{shape[3]}"
+            f" {str(dtype)[6:]} {'channels_last' if cl else 'NCHW'} "
+            f"residual={res} second bias={two} f={f:g}: {ms:.4f} / "
+            f"{call_ms:.4f} / {plain:.4f} / {lib:.4f} / {bound:.4f} "
+            f"({bound / ms:.0%} of bound; ATen {bound / lib:.0%})")
+        for k, v in (("ms", ms), ("event_ms", call_ms), ("plain_ms", plain),
+                     ("library_ms", lib), ("bound_ms", bound)):
+            tot[k] += count * v
+        del h, r
+        torch.cuda.empty_cache()
+    log(f"  summed over the calls ({sum(calls.values())} epilogues): kernel "
+        f"{tot['ms']:.3f} ms in CUDA graphs, {tot['event_ms']:.3f} ms with "
+        f"the wrapper; bound {tot['bound_ms']:.3f} ms "
+        f"({tot['bound_ms'] / tot['ms']:.1%} of the graph time); ATen's "
+        f"unfolded adds {tot['library_ms']:.3f} ms; plain "
+        f"{tot['plain_ms']:.3f} ms")
+    return tot
+
+
+def epilogue_host_us():
+    """Host us of one call through the custom op wftk::conv_epilogue, the
+    kernel's wrapper alone, and the GroupNorm op, at a small channels_last
+    bf16 shape, under inference mode as the rollout calls them."""
+    import torch
+
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import conv_epilogue as ce
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
+
+    h, r, b1, b2 = epilogue_inputs((8, 128, 64, 64), torch.bfloat16, True, 7)
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (
+                ("op", lambda: ce.conv_epilogue(h, b1)),
+                ("op with residual", lambda: ce.conv_epilogue(h, b1, r, b2)),
+                ("wrapper", lambda: ce.conv_epilogue_cuda(h, b1, None, None,
+                                                          1.0)),
+                ("GroupNorm op", lambda: groupnorm.group_norm_silu(
+                    h, b1, b2, 32, 1e-6, True))):
+            out[name] = host_us(fn, 200)
+    return out
+
+
+def epilogue_phase():
+    """``chip_smoke.py --epilogue``: phase 2b, then the epilogue at every
+    call shape of a reference-shape bf16 serving call (B=64) and a fast-VAE
+    one (B=256), and its host time beside the GroupNorm op's."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from weatherforecastingtoolkit_tpu_torch.data.synthetic import (
+        synthetic_vil_events)
+    from weatherforecastingtoolkit_tpu_torch.models.forecasters import DLinear
+    from weatherforecastingtoolkit_tpu_torch.models.rollout import (
+        make_forecast_pipeline)
+    from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
+        AutoencoderKL)
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    t0 = time.perf_counter()
+    ce.build()
+    log(f"conv_epilogue.cu: nvcc {ce.build_seconds:.2f} s "
+        f"({time.perf_counter() - t0:.2f} s with the load)")
+    for line in ce.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas conv_epilogue.cu: {line.strip()}")
+    log(f"phase 2b: the epilogue against its plain version, "
+        f"{epilogue_check()} cases, the same bits")
+    dlinear = DLinear(T_IN, T_OUT, kernel_size=25)
+    result = {}
+    for cfg, batch, title in ((REFERENCE_VAE, BATCH, "reference-shape"),
+                              (FAST_VAE, FAST_BATCH, "fast-VAE")):
+        events = synthetic_vil_events(batch, HW, HW, T_IN, seed=0)
+        frames = torch.from_numpy(np.ascontiguousarray(
+            np.transpose(events, (0, 3, 1, 2))[:, :, None])).cuda()
+        vae = AutoencoderKL(**cfg, seed=0).to(torch.bfloat16)
+        pipe = make_forecast_pipeline(**codec(vae, torch.bfloat16))
+        calls = record_epilogue_calls(lambda: pipe(dlinear, frames))
+        ce.launches = 0
+        pipe(dlinear, frames)
+        torch.cuda.synchronize()
+        log(f"{title} bf16 B={batch}: {ce.launches} epilogue launches a call "
+            f"({sum(calls.values())} recorded)")
+        del vae, pipe, frames
+        torch.cuda.empty_cache()
+        result[title] = time_epilogue_calls(calls, f"{title} bf16 B={batch}")
+    host = epilogue_host_us()
+    log("host us a call: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    log(json.dumps({"conv_epilogue": result, "host_us": host}))
+    return 0
+
+
 def card_events(prof):
     """The profiler's averaged operations that ran on the card (kernels,
     copies and fills), without the device shadows of user spans
@@ -642,12 +880,17 @@ def one_kernel(name, fn):
 
 
 def log_profile(title, call):
-    """Log kernels per call, the device's busy share and the top five
-    kernels of two calls under torch.profiler."""
+    """Log kernels per call (and the conv epilogue's launches among them),
+    the device's busy share and the top five kernels of two calls under
+    torch.profiler."""
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import conv_epilogue
+
+    before = conv_epilogue.launches
     busy, wall, count, top = profile_step(call, 2)
+    epi = (conv_epilogue.launches - before) / 2
     log(f"{title} (torch.profiler, 2 calls): device busy {busy:.2f} ms of "
         f"{wall:.2f} ms a call ({busy / wall:.0%}, profiler on), "
-        f"{count:.0f} kernels a call; top: "
+        f"{count:.0f} kernels a call ({epi:g} conv epilogues); top: "
         + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
 
 
@@ -4852,6 +5095,7 @@ def main():
         make_forecast_pipeline, make_streaming_forecaster)
     from weatherforecastingtoolkit_tpu_torch.models.vae.autoencoder_kl import (
         AutoencoderKL)
+    from weatherforecastingtoolkit_tpu_torch.ops.cuda import conv_epilogue
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import groupnorm
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv
     from weatherforecastingtoolkit_tpu_torch.ops.cuda import (
@@ -4874,14 +5118,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    kernels = (groupnorm, stencil_cuda, int8_conv)
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # one nvcc each
+    kernels = (groupnorm, stencil_cuda, int8_conv, conv_epilogue)
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:  # one nvcc each
         for fut in [pool.submit(k.build) for k in kernels]:
             fut.result()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s in parallel (nvcc "
         f"groupnorm_silu.cu {groupnorm.build_seconds:.2f} s, "
         f"advection_stencil.cu {stencil_cuda.build_seconds:.2f} s, "
-        f"int8_conv.cu {int8_conv.build_seconds:.2f} s)")
+        f"int8_conv.cu {int8_conv.build_seconds:.2f} s, "
+        f"conv_epilogue.cu {conv_epilogue.build_seconds:.2f} s)")
     for kernel in kernels:
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -4938,6 +5183,8 @@ def main():
                     cases += 1
         log(f"  edge N={n} C={c} {h}x{w} G={groups}: {cases} cases ok, max "
             f"abs err {err:.3g}")
+    log(f"phase 2b: the conv epilogue against its plain version, "
+        f"{epilogue_check()} cases, the same bits")
 
     log(f"phases 1-2: {since(t_main)}")
 
@@ -4984,9 +5231,16 @@ def main():
     t0 = time.perf_counter()
     gn_calls = record_gn_calls(vae16, lambda: pipe16(dlinear, frames))
     log(f"bf16 first call {time.perf_counter() - t0:.2f} s")
+    epi_calls = record_epilogue_calls(lambda: pipe16(dlinear, frames))
+    conv_epilogue.launches = 0
     out16 = run_counted("bf16 rollout", lambda: pipe16(dlinear, frames),
                         10, 42, BATCH)
     main_launches = groupnorm.launches
+    epi_launches = conv_epilogue.launches
+    log(f"bf16 rollout: {epi_launches} conv epilogue launches in 10 calls "
+        f"({sum(epi_calls.values())} a call recorded)")
+    if epi_launches != 10 * sum(epi_calls.values()):
+        raise AssertionError(f"{epi_launches} epilogue launches in 10 calls")
     check_frames(out32, (BATCH, T_OUT, 1, HW, HW))
     check_frames(out16, (BATCH, T_OUT, 1, HW, HW))
     s16 = frame_ssim(out32, out16)
@@ -5060,6 +5314,8 @@ def main():
     fast16 = make_forecast_pipeline(**codec(fvae16, torch.bfloat16))
     fast_gn_calls = record_gn_calls(fvae16,
                                     lambda: fast16(dlinear, fast_frames))
+    fast_epi_calls = record_epilogue_calls(
+        lambda: fast16(dlinear, fast_frames))
     out_f16 = run_counted(f"fast-VAE rollout B={FAST_BATCH}",
                           lambda: fast16(dlinear, fast_frames), 10, 30,
                           FAST_BATCH)
@@ -5093,6 +5349,11 @@ def main():
     fast_tot, _ = time_gn_calls(fast_gn_calls,
                                 f"fast-VAE bf16 B={FAST_BATCH}")
     tot, err = time_gn_calls(gn_calls, f"reference-shape bf16 B={BATCH}")
+    time_epilogue_calls(fast_epi_calls, f"fast-VAE bf16 B={FAST_BATCH}")
+    epi = time_epilogue_calls(epi_calls, f"reference-shape bf16 B={BATCH}")
+    host = epilogue_host_us()
+    log("conv epilogue, host us a call: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
     torch.cuda.empty_cache()
 
     log(f"phase 5: {since(t_main)}")
@@ -5180,7 +5441,12 @@ def main():
         "replaces": QUANTIZE_REPLACES, "launches": int8_launches[1],
         "max_abs_err": 0.0, "ms": i8["q_ms"], "plain_ms": i8["q_plain_ms"],
         "bound_ms": i8["q_bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "conv_epilogue", "route": "cuda", "source": EPILOGUE_SOURCE,
+        "replaces": None, "launches": epi_launches, "max_abs_err": 0.0,
+        "ms": epi["ms"], "plain_ms": epi["plain_ms"],
+        "bound_ms": epi["bound_ms"], "bound_by": "bytes",
+        "library_ms": epi["library_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -5188,7 +5454,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit({"--profile": profile_phase, "--train": train_phase,
+    sys.exit({"--profile": profile_phase, "--epilogue": epilogue_phase,
+              "--train": train_phase,
               "--zoo": zoo_phase, "--data": data_phase,
               "--cli": cli_phase, "--dist": dist_phase,
               "--dist-rank": dist_rank_phase, "--perf": perf_phase}.get(

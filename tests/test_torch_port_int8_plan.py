@@ -252,7 +252,8 @@ def test_vae_load_qscales_rebuilds_the_cache():
     x = torch.rand(2, 1, 16, 16)
     with torch.no_grad():
         before = vae.encode(x).mode()
-        convs = [m for m in vae.modules() if isinstance(m, tq.QConv)]
+        convs = [m for m in vae.modules() if isinstance(m, tq.QConv)
+                 and m.act_absmax is not None]
         vae.load_qscales({m.path: torch.full(m.act_absmax.shape, 2.5)
                           for m in convs})
         after = vae.encode(x).mode()

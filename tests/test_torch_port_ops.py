@@ -1,6 +1,8 @@
 """The port's hand-written kernels as custom ops: ``wftk::int8_quantize``,
-``wftk::int8_conv2d`` (ops/cuda/int8_conv.py) and ``wftk::advection_stencil``
-(ops/stencil.py), and ``normal_kl`` against the JAX function.
+``wftk::int8_conv2d`` (ops/cuda/int8_conv.py), ``wftk::advection_stencil``
+(ops/stencil.py) and ``wftk::conv_epilogue`` (ops/cuda/conv_epilogue.py,
+whose own tests are in test_torch_port_conv_epilogue.py), and ``normal_kl``
+against the JAX function.
 
 On the CPU each op's implementation is its kernel's plain version:
 ``torch.library.opcheck`` (schema, fake implementation with a symbolic
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from weatherforecastingtoolkit_tpu_torch.ops import stencil as ps
+from weatherforecastingtoolkit_tpu_torch.ops.cuda import conv_epilogue  # noqa: F401 (the op)
 from weatherforecastingtoolkit_tpu_torch.ops.cuda import int8_conv as ic
 from weatherforecastingtoolkit_tpu_torch.ops.cuda import stencil as cs
 
@@ -70,6 +73,19 @@ def _stencil_args(dtype, device, shape=(2, 4, 3, 9, 8), seed=0):
     x = torch.tensor(g.random(shape), dtype=dtype, device=device)
     return (x.requires_grad_(),) + tuple(
         torch.tensor(c, device=device, requires_grad=True) for c in COEFFS)
+
+
+def _epilogue_args(device, seed=0):
+    """bf16 channels_last h and residual, both biases, f = 0.5."""
+    g = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.tensor(g.standard_normal(shape), dtype=torch.bfloat16,
+                            device=device).requires_grad_()
+
+    h, r = (t((2, 16, 5, 3)).detach().contiguous(
+        memory_format=torch.channels_last).requires_grad_() for _ in "hr")
+    return h, t((16,)), r, t((16,)), 0.5
 
 
 def _leaves(args):
@@ -137,7 +153,7 @@ def test_stencil_op_on_cpu(dtype):
 
 
 @pytest.mark.parametrize("op", ["int8_quantize", "int8_conv2d",
-                                "advection_stencil"])
+                                "advection_stencil", "conv_epilogue"])
 def test_cuda_tensors_reach_the_kernel_wrapper(op):
     """Each op has a kernel at the dispatcher's CUDA key (the kernel's
     wrapper, which launches or raises), its plain version at the CPU key,
@@ -272,7 +288,9 @@ def test_ops_pass_opcheck_on_the_card(cuda_device):
             (torch.ops.wftk.int8_conv2d.default,
              _conv_args(*CONV_CASES[0], cuda_device)),
             (torch.ops.wftk.advection_stencil.default,
-             _stencil_args(torch.float32, cuda_device))):
+             _stencil_args(torch.float32, cuda_device)),
+            (torch.ops.wftk.conv_epilogue.default,
+             _epilogue_args(cuda_device))):
         torch.library.opcheck(op, args, test_utils=CARD_OPCHECK)
 
 

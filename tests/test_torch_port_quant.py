@@ -330,7 +330,7 @@ def test_mixed_spec_quantizes_exactly_the_encoder_mid_block():
     assert all((m.act_absmax is None) == (m.resolved == "native")
                for m in convs.values())
     for name in ("quant_conv", "post_quant_conv"):
-        assert type(getattr(model, name)) is torch.nn.Conv2d
+        assert convs[name].resolved == "native"
     assert not any("act_absmax" in k for k in model.state_dict())
     model.load_qscales({"encoder/mid_block/resnets_0/conv1": torch.full((16,), 3.0)})
     assert torch.equal(convs["encoder/mid_block/resnets_0/conv1"].act_absmax,
@@ -362,6 +362,95 @@ def test_state_dict_loads_strictly_into_jax(mode):
                           jnp.zeros((1, 1, 32, 32), jnp.float32))["params"]
     assert (jax.tree_util.tree_structure(back["params"])
             == jax.tree_util.tree_structure(want))
+
+
+def _qconv(case, mode, seed=0):
+    """A QConv in ``mode`` holding case's kernel, bias and scales, the input
+    as (N, C, H, W) fp32, and the JAX-layout arguments of the functional
+    conv it is built on."""
+    n, h, w, cin, cout, k, stride, padding = case
+    x, kernel, bias, absmax = _conv_inputs(case, seed)
+    pad = padding if isinstance(padding, int) else tuple(map(tuple, padding))
+    conv = tq.QConv(cin, cout, k, stride=stride, padding=pad, mode=mode)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(kernel).permute(3, 2, 0, 1))
+        conv.bias.copy_(torch.from_numpy(bias))
+        if conv.act_absmax is not None and mode != "calibrate":
+            conv.act_absmax.copy_(torch.from_numpy(absmax))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    fn_args = (torch.from_numpy(x), torch.from_numpy(kernel),
+               torch.from_numpy(bias), stride, padding)
+    return conv, xt, fn_args, torch.from_numpy(absmax)
+
+
+def _count_epilogues(monkeypatch):
+    calls = []
+    real = tq.conv_epilogue
+
+    def counted(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tq, "conv_epilogue", counted)
+    return calls
+
+
+@pytest.mark.parametrize("case", CONV_CASES[1:3])
+def test_qconv_native_adds_its_bias_in_the_epilogue(case, monkeypatch):
+    """A native QConv runs its conv without bias and one epilogue adds the
+    bias: in fp32 within 1e-6 of F.conv2d with the bias, and the gradients
+    of x, weight and bias within rel 1e-5 of F.conv2d's autograd; in bf16
+    the bits of the bias-free conv plus the bias in bf16 (ATen's add)."""
+    import torch.nn.functional as F
+
+    conv, x, _, _ = _qconv(case, "native")
+    t, b, l, r = conv.pad
+    calls = _count_epilogues(monkeypatch)
+    x.requires_grad_()
+    got = conv(x)
+    want = F.conv2d(F.pad(x, (l, r, t, b)), conv.weight, conv.bias,
+                    conv.stride)
+    assert len(calls) == 1 and calls[0][1] is not None
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(0))
+    leaves = (x, conv.weight, conv.bias)
+    for a, c in zip(torch.autograd.grad(got, leaves, g),
+                    torch.autograd.grad(want, leaves, g)):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)
+    conv = conv.to(torch.bfloat16)
+    xb = x.detach().to(torch.bfloat16)
+    with torch.no_grad():
+        free = F.conv2d(F.pad(xb, (l, r, t, b)), conv.weight, None,
+                        conv.stride)
+        assert torch.equal(conv(xb), free + conv.bias[:, None, None])
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_static", "fake_quant",
+                                  "calibrate"])
+def test_other_conv_modes_keep_their_bits(mode, monkeypatch):
+    """The quantized and calibrating modes keep their own bias add: each
+    gives the bits of the functional conv it is built on (``calibrate``:
+    F.conv2d with the bias, its scales recorded), and none calls the
+    epilogue."""
+    import torch.nn.functional as F
+
+    case = CONV_CASES[1]
+    conv, x, fn_args, absmax = _qconv(case, mode)
+    calls = _count_epilogues(monkeypatch)
+    with torch.no_grad():
+        got = conv(x)
+    if mode == "calibrate":
+        t, b, l, r = conv.pad
+        want = F.conv2d(F.pad(x, (l, r, t, b)), conv.weight, conv.bias,
+                        conv.stride)
+        assert torch.equal(conv.act_absmax, x.abs().amax(dim=(0, 2, 3)))
+    else:
+        fn = {"int8": tq.int8_conv, "int8_static": tq.int8_conv_static,
+              "fake_quant": tq.fake_quant_conv}[mode]
+        extra = () if mode == "int8" else (absmax,)
+        want = fn(*fn_args, *extra).permute(0, 3, 1, 2)
+    assert not calls and torch.equal(got, want)
 
 
 def test_tile_choice():

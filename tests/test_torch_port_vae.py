@@ -117,3 +117,99 @@ def test_unported_conv_modes_raise():
         assert torch.isfinite(model(torch.rand(1, 1, 32, 32))).all()
     with pytest.raises(ValueError, match="not in"):
         AutoencoderKL(**SMALL, conv_mode="int4", device="cpu")
+
+
+def _count_epilogues(monkeypatch, module):
+    """Calls of ``conv_epilogue`` made through ``module``'s name for it."""
+    calls = []
+    real = module.conv_epilogue
+
+    def counted(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, "conv_epilogue", counted)
+    return calls
+
+
+def _random_(module, rng):
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.from_numpy(0.3 * rng.standard_normal(p.shape)
+                                     ).float())
+
+
+@pytest.mark.parametrize("cin,cout,f", [(8, 8, 1.0), (8, 16, 1.0),
+                                        (8, 16, 2.0)])
+def test_resnet_block_folds_conv2_shortcut_and_residual(cin, cout, f, rng,
+                                                        monkeypatch):
+    """Native convs: conv1's epilogue adds its bias; conv2 and the shortcut
+    run without bias and one epilogue adds both biases and the residual and
+    divides by the output scale; fp32 within 1e-6 of the unfolded arithmetic
+    (each conv with its bias, then (shortcut + h) / f)."""
+    import torch.nn.functional as F
+
+    from weatherforecastingtoolkit_tpu_torch.models.vae import blocks
+
+    blk = blocks.ResnetBlock2D(cin, cout, groups=4, output_scale_factor=f)
+    _random_(blk, rng)
+    x = torch.from_numpy(rng.standard_normal((2, cin, 9, 7))).float()
+    calls = _count_epilogues(monkeypatch, blocks)
+    with torch.no_grad():
+        got = blk(x)
+        h = F.conv2d(blk.norm1(x), blk.conv1.weight, blk.conv1.bias, 1, 1)
+        h = F.conv2d(blk.norm2(h), blk.conv2.weight, blk.conv2.bias, 1, 1)
+        sc = blk.conv_shortcut
+        r = x if sc is None else F.conv2d(x, sc.weight, sc.bias)
+        want = (r + h) / f
+    assert len(calls) == 2                   # conv1's bias, then the fold
+    _, b, r, b_r, scale = calls[1]
+    assert b is not None and scale == f
+    assert (r is x) == (b_r is None) == (cin == cout)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["int8", "fake_quant"])
+def test_resnet_block_keeps_its_add_in_other_modes(mode, rng, monkeypatch):
+    """A quantized conv2 keeps the block's own residual add: the block gives
+    the bits of conv2(norm2(conv1(norm1(x)))) + shortcut(x), and makes no
+    epilogue call of its own."""
+    from weatherforecastingtoolkit_tpu_torch.models.vae import blocks
+
+    blk = blocks.ResnetBlock2D(8, 16, groups=4, conv_mode=mode)
+    _random_(blk, rng)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 9, 7))).float()
+    calls = _count_epilogues(monkeypatch, blocks)
+    with torch.no_grad():
+        got = blk(x)
+        want = (blk.conv_shortcut(x)
+                + blk.conv2(blk.norm2(blk.conv1(blk.norm1(x)))))
+    assert not calls and torch.equal(got, want)
+
+
+def test_decode_exports_with_the_epilogue(rng):
+    """torch.export of an AutoencoderKL decode (biases drawn, so each counts)
+    calls ``wftk::conv_epilogue`` once for each native conv outside a resnet
+    fold and once for each resnet block, and gives the eager bits."""
+    from weatherforecastingtoolkit_tpu_torch.models.vae.blocks import (
+        ResnetBlock2D)
+    from weatherforecastingtoolkit_tpu_torch.ops.quant import QConv
+
+    model = AutoencoderKL(**SMALL, device="cpu").eval()
+    _random_(model, rng)
+
+    class Decode(torch.nn.Module):
+        def forward(self, z):
+            return model.decode(z)
+
+    z = torch.from_numpy(rng.standard_normal((2, 4, 8, 8))).float()
+    program = torch.export.export(Decode(), (z,))
+    decode = [model.post_quant_conv, *model.decoder.modules()]
+    convs = sum(isinstance(m, QConv) for m in decode)
+    resnets = [m for m in decode if isinstance(m, ResnetBlock2D)]
+    folded = sum(1 + (m.conv_shortcut is not None) for m in resnets)
+    assert str(program.graph).count("wftk.conv_epilogue") == (
+        convs - folded + len(resnets))
+    with torch.no_grad():
+        assert torch.equal(program.module()(z), model.decode(z))

@@ -14,7 +14,8 @@ initializers, so a seed gives the same weights on every device.
 ``from_torch_state_dict`` loads this module's ``state_dict`` in every conv
 mode. ``conv_mode`` is a mode of ``ops/quant.py`` or a mixed spec, resolved
 at each conv's flax path (``encoder/down_blocks_1/resnets_0/conv1``);
-``quant_conv`` and ``post_quant_conv`` are plain convs, as in JAX.
+``quant_conv`` and ``post_quant_conv`` are native convs in every conv mode,
+as JAX's plain convs are.
 Calibration scales (``load_qscales``, ``qscales_from_flax``) live outside
 the state dict.
 """
@@ -76,10 +77,9 @@ class AutoencoderKL(nn.Module):
                 latent_channels, out_channels * f * f, block_out_channels,
                 layers_per_block, norm_num_groups, scales=dec_scales,
                 conv_mode=conv_mode, remat=remat)
-            self.quant_conv = nn.Conv2d(2 * latent_channels,
-                                        2 * latent_channels, 1)
-            self.post_quant_conv = nn.Conv2d(latent_channels,
-                                             latent_channels, 1)
+            self.quant_conv = QConv(2 * latent_channels,
+                                    2 * latent_channels, 1)
+            self.post_quant_conv = QConv(latent_channels, latent_channels, 1)
         self.to_empty(device="cpu")
         self._init_weights(np.random.default_rng(seed))
         self.to(device=device, memory_format=_CL)

@@ -6,7 +6,10 @@ Module names give the reference torch keys (``resnets.0.norm1.weight``,
 JAX ``from_torch_state_dict`` loads a port ``state_dict`` strictly.
 
 Convs are ``QConv``s in the mode their ``conv_mode`` spec resolves to at
-their flax path (``AutoencoderKL`` sets the paths).
+their flax path (``AutoencoderKL`` sets the paths). Where a
+``ResnetBlock2D``'s conv2 and shortcut are native, both run without bias and
+one ``conv_epilogue`` adds their biases and the residual and applies the
+output scale (``ops/cuda/conv_epilogue.py``).
 
 Every GroupNorm — ``ResnetBlock2D`` norm1/norm2, the stacks'
 ``conv_norm_out`` and the attention norm (eps 1e-5, no SiLU) — goes through
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.cuda.conv_epilogue import conv_epilogue
 from ...ops.cuda.groupnorm import group_norm_silu
 from ...ops.quant import ConvMode, QConv
 
@@ -34,6 +38,18 @@ from ...ops.quant import ConvMode, QConv
 def _rescale(x: torch.Tensor, factor: float) -> torch.Tensor:
     # dividing by 1.0 changes no value but costs a pass over x
     return x if factor == 1.0 else x / factor
+
+
+def _conv(conv: QConv, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` for an x that only this call holds (a temporary of the
+    caller's expression): a native conv lets x go before its epilogue
+    allocates the output, so the output takes x's place in memory instead
+    of adding to the peak."""
+    if conv.resolved != "native":
+        return conv(x)
+    h, b = conv.native_parts(x)
+    del x
+    return conv_epilogue(h, b)
 
 
 class GroupNormSiLU(nn.Module):
@@ -73,10 +89,20 @@ class ResnetBlock2D(nn.Module):
                               if in_channels != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(self.norm1(x))
+        h = _conv(self.conv1, self.norm1(x))
+        shortcut = self.conv_shortcut
+        if self.conv2.resolved == "native" and (
+                shortcut is None or shortcut.resolved == "native"):
+            # conv2 and the shortcut without bias; both biases, the residual
+            # and the scale in one epilogue pass. Each temporary is let go
+            # as soon as it is read.
+            h = self.norm2(h)
+            h, b = self.conv2.native_parts(h)
+            r, b_r = (x, None) if shortcut is None else shortcut.native_parts(x)
+            return conv_epilogue(h, b, r, b_r, self.output_scale_factor)
         h = self.conv2(self.norm2(h))
-        if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
+        if shortcut is not None:
+            x = shortcut(x)
         return _rescale(x + h, self.output_scale_factor)
 
 
@@ -105,7 +131,8 @@ class Upsample2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # an exact integer factor: output pixel i reads input pixel i // 2
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        return _conv(self.conv, F.interpolate(x, scale_factor=2.0,
+                                              mode="nearest"))
 
 
 class Downsample4x(nn.Module):

@@ -84,10 +84,9 @@ class CustomAutoencoderKL(nn.Module):
                 latent_channels, out_channels, block_out_channels,
                 layers_per_block, norm_num_groups, scales=dec_scales,
                 remat=remat)
-            self.quant_conv = nn.Conv2d(2 * latent_channels,
-                                        2 * latent_channels, 1)
-            self.post_quant_conv = nn.Conv2d(latent_channels,
-                                             latent_channels, 1)
+            self.quant_conv = QConv(2 * latent_channels,
+                                    2 * latent_channels, 1)
+            self.post_quant_conv = QConv(latent_channels, latent_channels, 1)
             self.to_timeseries = nn.Linear(grid, timeseries_dim)
             self.from_timeseries = nn.Linear(timeseries_dim, grid)
         self.to_empty(device="cpu")

@@ -11,6 +11,12 @@ straight-through gradients, for quantization-aware fine-tuning). A mixed
 spec is a tuple of (fnmatch pattern over the conv's flax path, mode) pairs;
 the first match wins and unmatched convs run ``native``.
 
+A ``native`` conv runs without its bias and adds it in
+``ops/cuda/conv_epilogue.py``'s epilogue (a hand-written kernel on a CUDA
+tensor, where cuDNN's bias add would be a second, unvectorised pass), in
+fp32 with one rounding, as that add rounds. ``calibrate`` keeps the conv's
+own bias add.
+
 The functional entry points keep the JAX layouts: x (N, H, W, Cin), kernel
 (kh, kw, Cin, Cout). Every int8 conv is the same three steps as in JAX:
 weights quantized per output channel (max|w| / 127) with plain torch ops
@@ -42,6 +48,7 @@ from torch._subclasses.functional_tensor import FunctionalTensor
 from torch.utils._python_dispatch import _disable_current_modes
 
 from .cuda import int8_conv as _kernels
+from .cuda.conv_epilogue import conv_epilogue
 
 CONV_MODES = ("native", "int8", "int8_static", "calibrate", "fake_quant")
 # modes whose convs hold calibration scales (act_absmax)
@@ -423,11 +430,28 @@ class QConv(nn.Module):
                               torch.amax(x.detach().float().abs(),
                                          dim=(0, 2, 3)),
                               out=self.act_absmax)
+            return self._conv(x, *self._native_bias(x))
+        return conv_epilogue(*self.native_parts(x))
+
+    def _native_bias(self, x: torch.Tensor):
+        """(dtype, bias): flax promotes input, kernel and bias to one dtype."""
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
-        bias = None if self.bias is None else self.bias.to(dtype)
+        return dtype, None if self.bias is None else self.bias.to(dtype)
+
+    def _conv(self, x: torch.Tensor, dtype: torch.dtype,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
         t, b, l, r = self.pad
         if t == b and l == r:
             return F.conv2d(x.to(dtype), self.weight.to(dtype), bias,
                             self.stride, (t, l))
         return F.conv2d(F.pad(x.to(dtype), (l, r, t, b)),
                         self.weight.to(dtype), bias, self.stride)
+
+    def native_parts(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The native conv without its bias (cuDNN on the card), and the
+        bias in the conv's dtype (None without one): ``conv_epilogue`` of
+        the two is the native forward, and a caller may fold more into the
+        same epilogue (``ResnetBlock2D``)."""
+        dtype, bias = self._native_bias(x)
+        return self._conv(x, dtype, None), bias
