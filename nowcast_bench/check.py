@@ -1,32 +1,44 @@
 """Whether what the timed path produced is right: the window's sampled
-answers against the plain float32 reference (``reference.py``), which
-works everything out again from the frames the benchmark gave both sides
-and the benchmark's weights.
+answers against the system module's plain float32 reference, which works
+everything out again from the frames the benchmark gave both sides and the
+benchmark's weights, with TF32 off.
 
 Numbers compared, each against the configuration's ``limits``:
   frame_err   the widest relative gap of one forecast frame over every
               frame of every sampled answer: ||y - y_ref|| / ||y_ref||, the
               denominator floored at the median frame's norm (so a nearly
-              empty frame does not blow up); covers encode, the residual
-              anchor, DLinear and decode;
-  window_err  (tick mixes) the same over each tile's latent window as the
-              port holds it after the tick, against the reference's encode
-              of that tile's last T_in frames.
+              empty frame does not blow up); covers every stage the answer
+              passes through;
+  window_err  (tick mixes) the same over each tile's state as the program
+              holds it after the tick, against the reference's state for
+              that tile's last T_in frames.
 A non-finite value reads as infinite, and a limit not yet set fails.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import contextlib
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
-from . import reference
 from .traffic_gen import tick_window
 
 # frames the reference encodes or decodes at a time
 REF_BLOCK = 128
+
+
+@contextlib.contextmanager
+def strict_fp32() -> Iterator[None]:
+    """float32 matrix products and convolutions without TF32."""
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 def widest_gap(out: torch.Tensor, ref: torch.Tensor, rows: int) -> float:
@@ -43,10 +55,12 @@ def widest_gap(out: torch.Tensor, ref: torch.Tensor, rows: int) -> float:
 
 
 def readings(cfg: dict, kind: str, samples: List, inputs: np.ndarray,
-             mix: dict, vae_w, fc_w, device) -> Dict[str, float]:
-    """The compared numbers over the sampled answers."""
+             mix: dict, reference: Callable, weights: dict,
+             device) -> Dict[str, float]:
+    """The compared numbers over the sampled answers; ``reference`` is the
+    system module's."""
     frame_err, window_err = 0.0, 0.0
-    with reference.strict_fp32():
+    with strict_fp32():
         for item in samples:
             if kind == "batch":
                 p, out = item
@@ -54,13 +68,13 @@ def readings(cfg: dict, kind: str, samples: List, inputs: np.ndarray,
             else:
                 tick, out, window = item
                 frames = tick_window(cfg, mix, inputs, tick)
-            ref, z = reference.rollout(vae_w, fc_w, cfg,
-                                       torch.from_numpy(frames).to(device), REF_BLOCK)
+            ref, state = reference(weights, cfg, torch.from_numpy(frames).to(device),
+                                   REF_BLOCK)
             rows = out.shape[0] * out.shape[1]
             frame_err = max(frame_err, widest_gap(out, ref, rows))
             if kind == "tick":
-                window_err = max(window_err, widest_gap(window, z, z.shape[0]))
-            del ref, z
+                window_err = max(window_err, widest_gap(window, state, state.shape[0]))
+            del ref, state
     nums = {"frame_err": frame_err}
     if kind == "tick":
         nums["window_err"] = window_err

@@ -6,10 +6,9 @@ on the card:
 
 For each seed, one run of the cell as ``run.py`` makes it (the same
 set-up, window, sample and comparison with the reference), printing one
-JSON line of the compared numbers. With ``--control`` the port runs its
-own int8 path (``conv_mode="int8"``: per-tensor dynamic activation scales,
-per-channel weight scales) in place of the configuration's bf16 convs: the
-nearest precision below the one the configuration states. With ``--fault``
+JSON line of the compared numbers. With ``--control`` the system module
+builds its control (``build(..., control=True)``): its path in the nearest
+precision below the one the configuration states. With ``--fault``
 the timed path is broken underneath by one of ``faults.FAULTS``. A limit
 lies above the program's readings and below the control's; each fault has
 to read above it. The benchmark's own runs do not run this.
@@ -25,7 +24,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-CONTROL_MODE = "int8"
 
 
 def builder(control: bool = False, fault: str = None):
@@ -33,7 +31,7 @@ def builder(control: bool = False, fault: str = None):
     fault."""
     from nowcast_bench import faults, system
     if control:
-        return functools.partial(system.build, conv_mode=CONTROL_MODE)
+        return functools.partial(system.build, control=True)
     return faults.FAULTS[fault] if fault else None
 
 

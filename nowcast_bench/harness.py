@@ -3,6 +3,9 @@ check. Everything that belongs to one configuration, mix or metric is
 found by name:
 
   configs/<config>.json    the configuration as it is run
+  systems/<system>.py      what the configuration's ``"system"`` runs: its
+                           weights, program, control, reference and counts
+                           (the contract is in ``systems/__init__.py``)
   traffic/<mix>.json       the mix's parameters (kind "batch" or "tick")
   metrics/<metric>.py      the metric's reader, ``read(run) -> float |
                            None``; a metric named ``<stem>.<suffix>`` with
@@ -10,8 +13,8 @@ found by name:
 
 With ``trace`` 0 the run reports the cell's end-to-end metrics; with 1 its
 per-layer metrics, read from the device trace and the benchmark's own
-spans, among them ``nb.encode`` and ``nb.decode`` around the encode and
-decode callables it hands the port.
+spans, among them ``nb.<name>`` around each stage callable the system
+module passes to ``wrap``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import sys
 
 import torch
 
-from . import check, costs, loops, traffic_gen, weights
+from . import check, costs, loops, system, traffic_gen, weights
 
 HERE = Path(__file__).resolve().parent
 
@@ -66,7 +69,7 @@ class Run:
 
 
 def _spanned(span: Callable) -> Callable:
-    """A ``wrap`` for ``system.build`` that opens the span ``nb.<name>``
+    """A ``wrap`` for a system's ``build`` that opens the span ``nb.<name>``
     around each call of the callable ``name``."""
     def wrap(name: str, fn: Callable) -> Callable:
         def spanned(x):
@@ -93,10 +96,9 @@ def run_cell(cfg: dict, mix: dict, metrics: List[dict], seed: int,
     """One run; returns the result line's object. ``metrics`` are the
     entries to report (the end-to-end ones with ``trace`` off, the
     per-layer ones with it on). ``build`` replaces ``system.build``
-    (tests break the timed path through it)."""
-    from .system import nvcc_seconds
-    if build is None:
-        from .system import build
+    (the control and the faults break the timed path through it)."""
+    mod = system.module(cfg)
+    build = build or system.build
     device = torch.device(device)
     clock = loops.Clock(device)
     kind = mix["kind"]
@@ -112,22 +114,21 @@ def run_cell(cfg: dict, mix: dict, metrics: List[dict], seed: int,
     traced = trace and cuda
     if traced:
         from . import trace as tr
-    vae_w, fc_w = weights.make(cfg, seed, device)
+    w = weights.make(mod, cfg, seed, device)
     phase("weights")
-    system = build(cfg, kind, vae_w, fc_w, device,
-                   wrap=_spanned(tr.span) if traced else None)
+    sut = build(cfg, kind, w, device, wrap=_spanned(tr.span) if traced else None)
     phase("build")
     if kind == "batch":
         inputs = traffic_gen.batch_pool(mix, cfg, seed, device)
         phase("traffic")
-        loops.warm_batch(system, inputs, clock)
-        cost = costs.call_cost(cfg, mix["batch"], cfg["input_frames"])
+        loops.warm_batch(sut, inputs, clock)
+        cost = mod.call_cost(cfg, mix["batch"], cfg["input_frames"])
     else:
         inputs = traffic_gen.tick_streams(mix, cfg, seed, device)
         phase("traffic")
-        state = loops.TickState(system, inputs, cfg, clock)
-        loops.warm_tick(system, state, inputs, cfg, mix, clock)
-        cost = costs.call_cost(cfg, mix["tiles"], 1)
+        state = loops.TickState(sut, inputs, cfg, clock)
+        loops.warm_tick(sut, state, inputs, cfg, mix, clock)
+        cost = mod.call_cost(cfg, mix["tiles"], 1)
     phase("warm-up")
     if traced:
         tr.warm()
@@ -136,15 +137,16 @@ def run_cell(cfg: dict, mix: dict, metrics: List[dict], seed: int,
     setup_s = time.perf_counter() - t_start
     log("setup: " + ", ".join(f"{n} {t - p:.3f} s" for (_, p), (n, t) in
                               zip([("start", t_start)] + phases, phases))
-        + (f"; nvcc {nvcc_seconds():.3f} s of the warm-up" if cuda else ""))
+        + (f"; nvcc {mod.nvcc_seconds():.3f} s of the warm-up"
+           if cuda and hasattr(mod, "nvcc_seconds") else ""))
     peak_setup = torch.cuda.max_memory_allocated(device) if cuda else 0
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
     def window(span=None):
         if kind == "batch":
-            return loops.run_batch(system, inputs, seconds, seed, clock, span)
-        return loops.run_tick(system, state, inputs, cfg, mix, seconds, seed,
+            return loops.run_batch(sut, inputs, seconds, seed, clock, span)
+        return loops.run_tick(sut, state, inputs, cfg, mix, seconds, seed,
                               clock, span)
 
     device_trace = None
@@ -167,12 +169,12 @@ def run_cell(cfg: dict, mix: dict, metrics: List[dict], seed: int,
             out_metrics[m["name"]] = {"value": v, "unit": m["unit"]}
 
     samples = win.samples
-    system = state = run = None       # the program's state goes before the reference runs
+    sut = state = run = None          # the program's state goes before the reference runs
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    nums = check.readings(cfg, kind, samples, inputs, mix, vae_w, fc_w, device)
+    nums = check.readings(cfg, kind, samples, inputs, mix, mod.reference, w, device)
     log(f"reference check {time.perf_counter() - t_ref:.3f} s over {len(samples)} answers")
     correct, checks = check.judge(nums, cfg["limits"])
     dev = {"platform": "gpu" if cuda else "cpu", "kind": kind_name,

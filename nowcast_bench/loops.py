@@ -5,8 +5,8 @@ batch: calls of B sequences back to back, each synchronised before the
   next, cycling through the pool of distinct batches. The window ends with
   the call that crosses ``seconds``; the rate is taken over all its calls
   and all its time.
-tick: every tile's next frame a tick, the latent windows kept on the card
-  between ticks. Each tick is timed on the card's clock (CUDA events
+tick: every tile's next frame a tick, the system's state (its window of
+  each tile) kept on the card between ticks. Each tick is timed on the card's clock (CUDA events
   recorded on the stream before the tick's first operation and after its
   last), from issue to the synchronised forecast.
 
@@ -86,23 +86,23 @@ class Window:
 
 def warm_batch(system, pool: np.ndarray, clock: Clock) -> None:
     for i in range(WARM_CALLS):
-        system.pipeline(system.fc, pool[i % len(pool)])
+        system.pipeline(system.params, pool[i % len(pool)])
         clock.sync()
 
 
 def run_batch(system, pool: np.ndarray, seconds: float, seed: int,
               clock: Clock, span: Optional[Callable] = None) -> Window:
     """``span(name)`` (traced runs) opens a named host span."""
-    win, res, fc = Window(), Reservoir(SAMPLES, seed), system.fc
+    win, res, params = Window(), Reservoir(SAMPLES, seed), system.params
     t0 = time.perf_counter()
     while True:
         p = win.calls % len(pool)
         ts = time.perf_counter()
         if span is None:
-            out = system.pipeline(fc, pool[p])
+            out = system.pipeline(params, pool[p])
         else:
             with span("nb.call"):
-                out = system.pipeline(fc, pool[p])
+                out = system.pipeline(params, pool[p])
         win.dispatch_s.append(time.perf_counter() - ts)
         clock.sync()
         res.offer(win.calls, lambda: (p, out.clone()))
@@ -115,7 +115,7 @@ def run_batch(system, pool: np.ndarray, seconds: float, seed: int,
 
 
 class TickState:
-    """The latent windows on the card and the next tick's number."""
+    """The system's state on the card and the next tick's number."""
 
     def __init__(self, system, streams: np.ndarray, cfg: dict, clock: Clock):
         self.window = system.init(streams[:, :cfg["input_frames"]])
@@ -127,7 +127,7 @@ def warm_tick(system, state: TickState, streams: np.ndarray, cfg: dict,
               mix: dict, clock: Clock) -> None:
     for _ in range(WARM_CALLS):
         f = streams[:, tick_frame_index(cfg, mix, state.tick)]
-        state.window, _ = system.step(system.fc, state.window, f)
+        state.window, _ = system.step(system.params, state.window, f)
         state.tick += 1
         clock.sync()
 
@@ -135,17 +135,17 @@ def warm_tick(system, state: TickState, streams: np.ndarray, cfg: dict,
 def run_tick(system, state: TickState, streams: np.ndarray, cfg: dict,
              mix: dict, seconds: float, seed: int, clock: Clock,
              span: Optional[Callable] = None) -> Window:
-    win, res, fc = Window(), Reservoir(SAMPLES, seed), system.fc
+    win, res, params = Window(), Reservoir(SAMPLES, seed), system.params
     t0 = time.perf_counter()
     while True:
         f = streams[:, tick_frame_index(cfg, mix, state.tick)]
         a = clock.mark()
         ts = time.perf_counter()
         if span is None:
-            state.window, out = system.step(fc, state.window, f)
+            state.window, out = system.step(params, state.window, f)
         else:
             with span("nb.call"):
-                state.window, out = system.step(fc, state.window, f)
+                state.window, out = system.step(params, state.window, f)
         win.dispatch_s.append(time.perf_counter() - ts)
         b = clock.mark()
         clock.wait(b)

@@ -1,6 +1,5 @@
 """decode_ms.<mix kind>: as encode_ms, over the ``nb.decode`` spans around
-the decode callable (AutoencoderKL.decode, the 12 forecast latents of every
-sequence)."""
+the system's ``decode`` stage (every forecast frame of every sequence)."""
 
 
 def read(run):

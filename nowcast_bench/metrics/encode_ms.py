@@ -1,6 +1,6 @@
 """encode_ms.<mix kind>: device milliseconds a call of the operations that
-the encode callable handed to the rollout (AutoencoderKL.encode ->
-posterior mode) launched inside its ``nb.encode`` spans, from the trace,
+the system's ``encode`` stage (the callable it passes to ``wrap`` under
+that name) launched inside its ``nb.encode`` spans, from the trace,
 summed over the window and divided by its calls. A wait for the host
 inside the span adds nothing."""
 

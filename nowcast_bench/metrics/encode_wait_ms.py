@@ -1,5 +1,5 @@
 """encode_wait_ms.<mix kind>: milliseconds a call with nothing on the card,
-charged to ``wftk.encode``: the VAE encoder. Each stretch between the
+charged to ``wftk.encode``: the rollout's encode. Each stretch between the
 window's operations goes to the innermost port span open on the host at
 its middle (``port_spans.py``); summed over the window and divided by
 its calls. Nothing when the port logs no spans."""

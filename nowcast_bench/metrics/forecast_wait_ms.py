@@ -1,6 +1,6 @@
 """forecast_wait_ms.<mix kind>: milliseconds a call with nothing on the
 card, charged to ``wftk.forecast`` or ``wftk.window``: the anchor,
-DLinear, the add-back and the tick's latent window. Each stretch between
+the forecaster, the add-back and the tick's window. Each stretch between
 the window's operations goes to the innermost port span open on the host
 at its middle (``port_spans.py``); summed over the window and divided by
 its calls. Nothing when the port logs no spans."""

@@ -1,6 +1,6 @@
 """mfu.<mix kind>: the whole call's share of the card's bf16 dense peak, in
-%: the configuration's counted FLOPs (convs, attention's products,
-DLinear; costs.call_cost) times the window's calls, over the window's
+%: the configuration's counted FLOPs (the system module's
+``call_cost``) times the window's calls, over the window's
 seconds and the published peak. The count does not depend on what
 implements the call."""
 

@@ -31,9 +31,8 @@ Layer equations:
 
 from __future__ import annotations
 
-import contextlib
 import math
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -233,18 +232,6 @@ def dlinear(p: Dict[str, torch.Tensor], x: torch.Tensor,
 # --------------------------------------------------------------------------
 # the rollout
 # --------------------------------------------------------------------------
-@contextlib.contextmanager
-def strict_fp32() -> Iterator[None]:
-    """float32 matrix products and convolutions without TF32."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
-
-
 def frames_to_float(frames: torch.Tensor) -> torch.Tensor:
     """uint8 frames -> float32 in [0, 1]."""
     return frames.to(torch.float32) / 255.0

@@ -48,8 +48,14 @@ def main(argv=None) -> int:
     cell = cells[args.workload]
     os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
     os.environ["TORCH_EXTENSIONS_DIR"] = str(CACHE / "torch_extensions")
+    # One host thread for the program's CPU work: a pool of OpenMP workers
+    # (one a core by default) spins after every parallel copy, such as the
+    # tick's gather of its tiles' frames, and takes cores from the thread
+    # that dispatches to the card.
+    os.environ["OMP_NUM_THREADS"] = "1"
 
     import torch
+    torch.set_num_threads(1)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         print(f"needs {cell['chips']} CUDA device(s), found {n}", file=sys.stderr)

@@ -6,7 +6,9 @@ from __future__ import annotations
 
 import copy
 
-from nowcast_bench import harness
+import torch
+
+from nowcast_bench import harness, system, weights
 
 # Limits at these widths, set from CPU readings over six seeds (2**31 + 1
 # to + 6) as the cells' limits are set from chip readings at full width:
@@ -29,6 +31,11 @@ def narrow(name: str, dtype: str = "bfloat16") -> dict:
     cfg["vae_dtype"] = dtype
     cfg["limits"] = dict(NARROW_LIMITS[name])
     return cfg
+
+
+def draw(cfg: dict, seed: int) -> dict:
+    """The weights a run of ``cfg`` draws from ``seed``, on the CPU."""
+    return weights.make(system.module(cfg), cfg, seed, torch.device("cpu"))
 
 
 BATCH = {"kind": "batch", "batch": 2, "pool": 3}

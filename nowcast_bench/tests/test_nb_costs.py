@@ -7,8 +7,8 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from nowcast_bench import costs, harness, reference, weights
-from nowcast_bench.tests.nb_narrow import narrow
+from nowcast_bench import costs, harness, reference, system
+from nowcast_bench.tests.nb_narrow import draw, narrow
 
 CPU = torch.device("cpu")
 
@@ -28,7 +28,8 @@ def _record_gn(monkeypatch):
 @pytest.mark.parametrize("kind", ["batch", "tick"])
 def test_flops_and_gn_calls_match_the_reference(name, kind, monkeypatch):
     cfg = narrow(name, dtype="float32")
-    vae_w, fc_w = weights.make(cfg, 3, CPU)
+    w = draw(cfg, 3)
+    vae_w, fc_w = w["vae"], w["forecaster"]
     b, t_enc = 3, (13 if kind == "batch" else 1)
     hw = cfg["frame_hw"]
     frames = torch.randint(0, 255, (b, t_enc, 1, hw, hw), dtype=torch.uint8)
@@ -39,10 +40,10 @@ def test_flops_and_gn_calls_match_the_reference(name, kind, monkeypatch):
         if kind == "tick":            # the step forecasts from a full window
             z = z.expand(b, 13, z.shape[2]).contiguous()
         reference.forecast(vae_w, fc_w, cfg, z, block=10 ** 6)
-    want = costs.call_cost(cfg, b, t_enc)
+    want = system.module(cfg).call_cost(cfg, b, t_enc)
     assert counter.get_total_flops() == want.flops
     assert sorted(gn) == sorted(tuple(g) for g in want.gn_calls)
-    assert (want.frames_encoded, want.frames_decoded) == (b * t_enc, b * 12)
+    assert want.gn_elem_bytes == 4
 
 
 def test_full_width_counts():
@@ -54,13 +55,15 @@ def test_full_width_counts():
     fast = harness.load_json("configs", "akl_fast")
     for cfg, enc, dec, call, n_gn in ((ref, 11.3e9, 42.1e9, 41.7e12, 42),
                                       (fast, 3.1e9, 8.2e9, 8.9e12, 30)):
-        one_enc = costs.call_cost(cfg, 1, 1).flops - costs.call_cost(cfg, 1, 0).flops
-        one_dec = costs.call_cost(cfg, 1, 0).flops / 12
+        call_cost = system.module(cfg).call_cost
+        one_enc = call_cost(cfg, 1, 1).flops - call_cost(cfg, 1, 0).flops
+        one_dec = call_cost(cfg, 1, 0).flops / 12
         assert one_enc == pytest.approx(enc, rel=0.025)
         assert one_dec == pytest.approx(dec, rel=0.025)
-        c = costs.call_cost(cfg, 64, 13)
+        c = call_cost(cfg, 64, 13)
         assert c.flops == pytest.approx(call, rel=0.025)
         assert len(c.gn_calls) == n_gn
+        assert c.gn_elem_bytes == 2                        # bf16
 
 
 def test_gn_bytes_and_bound():

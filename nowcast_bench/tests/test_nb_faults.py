@@ -5,12 +5,11 @@ widths on the CPU, through the whole harness but its look for a card.
 The faults are ``faults.FAULTS``; ``test_nb_card.py`` reads them at the
 cells' own sizes on the card."""
 
-import functools
 import time
 
 import pytest
 
-from nowcast_bench import faults, harness, system
+from nowcast_bench import control, faults, harness
 from nowcast_bench.tests.nb_narrow import BATCH, TICK, narrow
 
 SEEDS = (2 ** 31 + 1, 2 ** 31 + 2, 2 ** 31 + 3)
@@ -35,9 +34,9 @@ def test_fault_is_not_correct(name, mix, fault):
 @pytest.mark.parametrize("mix", [BATCH, TICK])
 def test_control_is_not_correct_where_the_program_is(name, mix):
     cfg = narrow(name)
-    control = functools.partial(system.build, conv_mode="int8")
+    build = control.builder(control=True)
     for seed in SEEDS:
         ok = _run(cfg, mix, seed)
-        bad = _run(cfg, mix, seed, build=control)
+        bad = _run(cfg, mix, seed, build=build)
         assert ok["correct"], ok["checks"]
         assert not bad["correct"], bad["checks"]

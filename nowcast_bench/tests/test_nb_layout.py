@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from nowcast_bench import harness, loops
+from nowcast_bench import harness, loops, system
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -24,6 +24,7 @@ def test_cell_finds_its_config_and_mix(cell):
     entry = {c["name"]: c for c in BENCH["configs"]}[w["config"]]
     assert entry["file"] == f"nowcast_bench/configs/{w['config']}.json"
     assert cfg["name"] == w["config"] and cfg["reduced"] == entry["reduced"]
+    assert cfg["system"] in system.names()
     assert mix["kind"] in ("batch", "tick") and w["chips"] == 1
     assert all(cfg["limits"][k] is not None for k in
                (["frame_err"] + (["window_err"] if mix["kind"] == "tick" else [])))
@@ -35,7 +36,7 @@ def test_cell_finds_its_config_and_mix(cell):
 @pytest.mark.parametrize("metric", METRICS)
 def test_every_metric_has_a_reader_that_reads_nothing_from_an_empty_run(metric):
     read = harness.reader(metric)
-    run = harness.Run(cfg={"pred_frames": 12, "vae_dtype": "bfloat16"},
+    run = harness.Run(cfg={"pred_frames": 12},
                       mix={"batch": 1}, kind="none", setup_s=1.0,
                       window=loops.Window(), cost=None, peaks=None,
                       peak_window_bytes=0)
@@ -60,3 +61,17 @@ def test_names_units_and_references():
 def test_unknown_metric_has_no_reader():
     with pytest.raises(FileNotFoundError):
         harness.reader("no_such_metric.batch")
+
+
+@pytest.mark.parametrize("kind,metric,want", [
+    ("batch", "frames_per_s", 10 * 4 * 12 / 2.5),
+    ("tick", "tick_p95_ms", 47.55),
+])
+def test_the_rate_takes_every_call_over_the_window_and_the_tail_every_tick(kind, metric, want):
+    w = loops.Window(calls=10, seconds=2.5, tick_s=[k / 1e3 for k in range(1, 51)])
+    run = harness.Run(cfg={"pred_frames": 12}, mix={"batch": 4, "tiles": 162},
+                      kind=kind, setup_s=1.0, window=w, cost=None, peaks=None,
+                      peak_window_bytes=0)
+    assert harness.reader(metric)(run) == pytest.approx(want)
+    other = harness.Run(**{**run.__dict__, "kind": "tick" if kind == "batch" else "batch"})
+    assert harness.reader(metric)(other) is None
